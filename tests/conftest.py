@@ -13,3 +13,7 @@ import pytest
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "gpu: needs a CUDA device (skips without one)")
