@@ -6,15 +6,15 @@
 Phases (any failure exits non-zero):
 
 1. print the card (``nvidia-smi`` name and power limit, torch's name);
-2. build the CUDA kernels from the checkout's sources (``build/kernels/``)
-   and print ``-Xptxas -v`` and the build seconds — the merge lookup is
-   built first; each fused region compiles at its first launch;
+2. build the static CUDA kernels (merge lookup, segment reduce) from the
+   checkout's sources into ``build/kernels/``, one ``nvcc`` each, started
+   together; each fused region compiles at its first launch;
 3. generate TPC-H SF 1 (6M lineitem rows, seed 7) on the card and run the
    five queries through ``repro_torch.connect(db).query(q)`` (the cold run),
    each held against its numpy ``reference()`` at rtol=3e-3, atol=3e-2
    with equal key sets;
-4. with every launch count set to 0, drive the main path again (the warm
-   run, timed per query), print each region's mode and each kernel's
+4. with every launch count set to 0, drive the per-query path again (the
+   warm run, timed per query), print each region's mode and each kernel's
    launches, and require >= 3 fused-pipeline launches (Q1, Q3, Q18) and
    >= 1 merge-lookup launch (Q9);
 5. hold every kernel launch of that run against its plain PyTorch twin on
@@ -25,15 +25,41 @@ Phases (any failure exits non-zero):
    3.35 TB/s or operations over 67 TFLOP/s, whichever is larger) and, for
    the merge lookup, ``torch.searchsorted`` plus a gather; then profile one
    warm pass (``torch.profiler``: device time by op, device idle share);
-7. print the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+7. the TPC-H shared batch: the five queries' session plans merged by
+   ``plan.merge_shared_scans`` (regions {lineitem: 5, orders: 4,
+   supplier: 2}) and run with the counts at 0 through
+   ``engine.cached_shared_executable``; each result equals its per-query
+   result and its numpy reference, every kernel launch its twin; the
+   batch's warm wall beside the sum of the five per-query warm walls;
+8. in-DB ML at the Retailer dataset's scale (LMFAO, SIGMOD 2019: fact
+   Inventory 84,055,817 rows, dimension Weather 1,159,457), the example's
+   snowflake generator (``examples/indb_ml_covar.py``) with numpy seed 0 on
+   the card: with the counts at 0, the normal-equation terms as one shared
+   batch (S×5, R×3), ``covar_factorized`` under Algorithm 1's Ragg choice
+   and under the LMFAO policy (``st_sorted``, sorted probes), and
+   ``covar_naive``, each against float64 numpy, θ recovering (0.8, −0.5);
+   >= 2 segment-reduce launches, >= 1 merge-lookup launch and one
+   fused-pipeline launch per kernel-eligible branch of the batch; every
+   launch against its twin; the segment reduce and the new merge-lookup
+   shape timed beside their bounds, twins and library calls; warm walls and
+   peak device memory of each path;
+9. print the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+
+Phases 7 and 8 price merges against the card's device memory: the kernels
+read dictionaries from device memory, and the planner's default budget is
+the reference's TPU VMEM.
 
 It imports nothing of JAX and nothing of the reference package.
 """
+import contextlib
+import dataclasses
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -42,6 +68,8 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 RTOL, ATOL = 3e-3, 3e-2
 SCALE, SEED = 1.0, 7
 QUERIES = ("q1", "q3", "q5", "q9", "q18")
+TPCH_MERGE = {"lineitem": 5, "orders": 4, "supplier": 2}
+N_FACT, N_DIM, ML_SEED = 84_055_817, 1_159_457, 0  # Retailer: Inventory, Weather
 
 
 def check(cond, msg):
@@ -50,9 +78,12 @@ def check(cond, msg):
 
 
 def same_items(got, want, what):
-    check(set(got) == set(want), f"{what}: key sets differ ({len(got)} vs {len(want)})")
-    for k in want:
-        np.testing.assert_allclose(got[k], want[k], rtol=RTOL, atol=ATOL, err_msg=f"{what} key {k}")
+    """Equal key sets and values within the tolerance, compared as one array."""
+    check(got.keys() == want.keys(), f"{what}: key sets differ ({len(got)} vs {len(want)})")
+    ks = list(want)
+    g = np.array([np.ravel(got[k]) for k in ks], dtype=np.float64)
+    w = np.array([np.ravel(want[k]) for k in ks], dtype=np.float64)
+    np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL, err_msg=what)
 
 
 def timed(torch, fn, reps):
@@ -69,10 +100,165 @@ def timed(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def dict_items(keys, vals, empty):
-    ks, vs = keys.cpu().numpy(), vals.cpu().numpy()
-    live = ks != empty
-    return dict(zip(ks[live].tolist(), vs[live]))
+def wall(torch, fn):
+    """(result, host seconds) of one call that ends in a synchronize."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+START = time.perf_counter()
+
+
+def stamp(phase):
+    """Mark the start of a phase with the seconds since the script began."""
+    print(f"[{time.perf_counter() - START:.1f}s] {phase}", flush=True)
+
+
+def bound_ms(nbytes, nops):
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S)
+
+
+def dict_arrays(keys, vals, empty):
+    """A dictionary's live keys in ascending order and their value rows."""
+    live = keys != empty
+    ks, vs = keys[live], vals[live]
+    order = ks.argsort()
+    return ks[order].cpu().numpy(), vs[order].cpu().numpy()
+
+
+@contextlib.contextmanager
+def recording(targets):
+    """Set each wrapper's launch count to 0, then record every call of
+    ``module.name`` as ``(args, out)`` under ``calls[name]``."""
+    calls, saved = {}, []
+    for mod, name in targets:
+        real = getattr(mod, name)
+        real.launches = 0
+        log = calls[name] = []
+
+        def rec(*args, _real=real, _log=log):
+            out = _real(*args)
+            _log.append((args, out))
+            return out
+
+        setattr(mod, name, rec)
+        saved.append((mod, name, real))
+    try:
+        yield calls
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def check_fused(torch, fp, dbase, calls, what):
+    """Every fused-pipeline launch against its plain twin; max |err|."""
+    worst = 0.0
+    for args, out in calls:
+        program = args[0]
+        want = fp.fused_pipeline_plain(*args)
+        torch.cuda.synchronize()
+        if program.out[0] == "dict":
+            gk, gv = dict_arrays(*out, dbase.EMPTY)
+            wk, wv = dict_arrays(*want, dbase.EMPTY)
+            check(np.array_equal(gk, wk), f"{what}: fused region {program.term[0]}: key sets differ from the plain twin")
+            np.testing.assert_allclose(gv, wv, rtol=RTOL, atol=ATOL, err_msg=f"{what}: fused region {program.term[0]}")
+            err = float(np.abs(gv - wv).max()) if len(wk) else 0.0
+        else:
+            np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), rtol=RTOL, atol=ATOL)
+            err = float((out - want).abs().max())
+        worst = max(worst, err)
+    return worst
+
+
+def check_merge(torch, ml, calls, what):
+    """Every merge-lookup launch against its plain twin: equal, bit for bit."""
+    for (keys, vals, qs), out in calls:
+        want = ml.merge_lookup_plain(keys, vals, qs)
+        torch.cuda.synchronize()
+        check(torch.equal(out[1], want[1]), f"{what}: merge lookup found flags differ from the plain twin")
+        check(torch.equal(out[0], want[0]), f"{what}: merge lookup values differ from the plain twin")
+
+
+def check_segment(torch, sr, calls, what):
+    """Every segment-reduce launch against its plain twin: equal end flags,
+    sums within the tolerance (the scans add in another order); max |err|."""
+    worst = 0.0
+    for (keys, vals), (sums, ends) in calls:
+        psums, pends = sr.segment_reduce_plain(keys, vals)
+        torch.cuda.synchronize()
+        check(torch.equal(ends, pends), f"{what}: segment reduce end flags differ from the plain twin")
+        check(torch.allclose(sums, psums, rtol=RTOL, atol=ATOL),
+              f"{what}: segment reduce sums differ from the plain twin")
+        worst = max(worst, float((sums - psums).abs().max()))
+        del psums, pends
+    return worst
+
+
+def profile_pass(torch, fn, top_n):
+    """Profile one call: its wall, device busy time (the union of the device
+    events' intervals: an aten op on the host also carries its kernels'
+    device time, so summing every event counts twice), idle share, and the
+    ops with the most device and host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def on_device(e):
+        return e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, pass_s = wall(torch, fn)
+    busy_us, reach = 0.0, float("-inf")
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in prof.events() if on_device(e)):
+        busy_us += max(0.0, e - max(s, reach))
+        reach = max(reach, e)
+    check(busy_us > 0, "the profiler saw no device time")
+    ops = sorted((e for e in prof.key_averages() if on_device(e)), key=lambda e: -e.self_device_time_total)
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return {
+        "pass_ms": pass_s * 1e3, "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e6 / pass_s,
+        "top_device": [{"op": e.key[:60], "device_ms": e.self_device_time_total / 1e3, "calls": e.count}
+                       for e in ops[:top_n]],
+        "top_host": [{"op": e.key[:60], "host_ms": e.self_cpu_time_total / 1e3, "calls": e.count}
+                     for e in host[:top_n]],
+    }
+
+
+def merge_row(torch, ml, real_ml, keys, vals, qs, reps):
+    """Time one merge-lookup shape: kernel, twin, searchsorted + gather."""
+    C, V, n = keys.shape[0], vals.shape[1], qs.shape[0]
+    lo = int(torch.searchsorted(keys, qs[:1]).item()) if n else 0
+    hi = int(torch.searchsorted(keys, qs[-1:], right=True).item()) if n else 0
+    span = min(C, hi - lo + 1)  # table rows these sorted probes can touch
+    nbytes = span * 4 * (1 + V) + n * 4 + n * (4 * V + 1)
+    nops = n * 13  # one compare per window search round
+    ms = timed(torch, lambda: real_ml(keys, vals, qs), reps)
+    plain_ms = timed(torch, lambda: ml.merge_lookup_plain(keys, vals, qs), reps)
+
+    def library():
+        idx = torch.searchsorted(keys, qs).clamp_(max=C - 1)
+        return vals[idx], keys[idx] == qs
+
+    lib_ms = timed(torch, library, reps)
+    row = {"C": C, "V": V, "n": n, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bytes": nbytes, "ops": nops, "bound_ms": bound_ms(nbytes, nops)}
+    print(f"merge lookup C={C} V={V} n={n}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"searchsorted+gather {lib_ms:.3f} ms, bound {row['bound_ms']:.4f} ms")
+    return row
+
+
+def snowflake(n_fact, n_dim, seed):
+    """The example's generator: S(s sorted, i, u), R(s, c) with
+    u = 0.8·i − 0.5·c[s] + 0.1·noise."""
+    rng = np.random.default_rng(seed)
+    c = rng.normal(size=n_dim).astype(np.float32)
+    s = np.sort(rng.integers(0, n_dim, n_fact)).astype(np.int32)
+    i = rng.normal(size=n_fact).astype(np.float32)
+    u = 0.8 * i - 0.5 * c[s] + 0.1 * rng.normal(size=n_fact).astype(np.float32)
+    return {"s": s, "i": i, "u": u.astype(np.float32)}, {"s": np.arange(n_dim, dtype=np.int32), "c": c}
 
 
 def main() -> int:
@@ -83,12 +269,20 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
     import repro_torch
+    from repro_torch.core import operators as O
+    from repro_torch.core import plan as P
+    from repro_torch.core.cost import AnalyticCostModel, FusionCostModel
+    from repro_torch.core.lower import compile as compile_plan
+    from repro_torch.core.synthesis import synthesize
     from repro_torch.data import tpch
+    from repro_torch.data.table import collect_stats, from_numpy
     from repro_torch.dicts import base as dbase
+    from repro_torch.exec import engine as E
     from repro_torch.exec.queries import REGISTRY
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_pipeline as fp
     from repro_torch.kernels import merge_lookup as ml
+    from repro_torch.kernels import segment_reduce as sr
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -102,9 +296,22 @@ def main() -> int:
     print(f"card: {smi}")
     print(f"torch: {torch.__version__} cuda {torch.version.cuda} device {kind}")
     dev = torch.device("cuda:0")
+    # the merge budget on the card: dictionaries live in device memory
+    card_fusion = dataclasses.replace(FusionCostModel(), vmem_budget=torch.cuda.get_device_properties(0).total_memory)
+    real_fp, real_ml, real_sr = fp.fused_pipeline, ml.merge_lookup, sr.segment_reduce
+    kernels_of_path = [(fp, "fused_pipeline"), (ml, "merge_lookup"), (sr, "segment_reduce")]
 
-    # -- 2. build the merge lookup + 3. data and cold run ---------------------
-    build.load("merge_lookup", (build.CSRC / "merge_lookup.cu").read_text())
+    # -- 2. build the static kernels, one nvcc each, started together ----------
+    stamp("2. build")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for lib in pool.map(lambda name: build.load(name, (build.CSRC / f"{name}.cu").read_text()),
+                            ("merge_lookup", "segment_reduce")):
+            check(lib is not None, "a static kernel did not load")
+    print(f"static kernels built in {time.perf_counter() - t0:.1f}s")
+
+    # -- 3. data and cold run ----------------------------------------------------
+    stamp("3. TPC-H data and cold run")
     t0 = time.perf_counter()
     db = tpch.generate(scale=SCALE, seed=SEED, device=dev).tables()
     torch.cuda.synchronize()
@@ -121,64 +328,33 @@ def main() -> int:
         same_items(got, refs[q], f"{q} (cold run)")
         print(f"cold {q}: {cold:.2f}s, {len(got)} groups match the numpy reference "
               f"(reference {time.perf_counter() - t:.1f}s)")
-    for rec in build.BUILDS:
-        print(f"build {rec.name}: {rec.seconds:.1f}s {os.path.basename(rec.path)}")
-        for line in rec.ptxas.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  ptxas {line.strip()}")
-    check(build.BUILDS, "no kernel was built from source")
 
-    # -- 4. the main path, counts from zero -----------------------------------
-    real_fp, real_ml = fp.fused_pipeline, ml.merge_lookup
-    fp_calls, ml_calls = [], []
-
-    def rec_fp(*args):
-        out = real_fp(*args)
-        fp_calls.append((args, out))
-        return out
-
-    def rec_ml(*args):
-        out = real_ml(*args)
-        ml_calls.append((args, out))
-        return out
-
-    fp.fused_pipeline, ml.merge_lookup = rec_fp, rec_ml
-    real_fp.launches = real_ml.launches = 0
-    walls, modes = {}, {}
-    try:
+    # -- 4. the per-query path, counts from zero ----------------------------------
+    stamp("4. per-query path")
+    walls, modes, per_query = {}, {}, {}
+    with recording(kernels_of_path) as calls:
         for q in QUERIES:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            got = session.query(q)
-            torch.cuda.synchronize()
-            walls[q] = time.perf_counter() - t
+            per_query[q], walls[q] = wall(torch, lambda: session.query(q))
             modes[q] = session.report().modes()
-            same_items(got, refs[q], f"{q} (warm run)")
-    finally:
-        fp.fused_pipeline, ml.merge_lookup = real_fp, real_ml
-    launches = {"fused_pipeline": real_fp.launches, "merge_lookup": real_ml.launches}
+            same_items(per_query[q], refs[q], f"{q} (warm run)")
+    launches = {"per_query": {name: getattr(mod, name).launches for mod, name in kernels_of_path}}
+    fp_calls, ml_calls = calls["fused_pipeline"], calls["merge_lookup"]
     for q in QUERIES:
         print(f"warm {q}: {walls[q] * 1e3:.1f} ms; regions {modes[q]}")
-    print(f"launches on the main path: {launches}")
-    check(launches["fused_pipeline"] >= 3, "fewer than 3 fused-pipeline launches (Q1, Q3, Q18)")
-    check(launches["merge_lookup"] >= 1, "no merge-lookup launch (Q9)")
-    check(len(fp_calls) == launches["fused_pipeline"] and len(ml_calls) == launches["merge_lookup"],
+    print(f"launches on the per-query path: {launches['per_query']}")
+    check(launches["per_query"]["fused_pipeline"] >= 3, "fewer than 3 fused-pipeline launches (Q1, Q3, Q18)")
+    check(launches["per_query"]["merge_lookup"] >= 1, "no merge-lookup launch (Q9)")
+    check(len(fp_calls) == launches["per_query"]["fused_pipeline"]
+          and len(ml_calls) == launches["per_query"]["merge_lookup"],
           "recorded calls disagree with the launch counts")
 
     # -- 5. every launch against its plain twin; 6. timing ---------------------
+    stamp("5-6. twins and timing")
     regions, fp_err = [], 0.0
-    for (args, out) in fp_calls:
+    for call in fp_calls:
+        args = call[0]
         program = args[0]
-        want = fp.fused_pipeline_plain(*args)
-        torch.cuda.synchronize()
-        if program.out[0] == "dict":
-            g = dict_items(*out, dbase.EMPTY)
-            w = dict_items(*want, dbase.EMPTY)
-            same_items(g, w, f"fused region {program.term[0]} kernel vs plain")
-            err = max((float(np.abs(g[k] - w[k]).max()) for k in w), default=0.0)
-        else:
-            np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), rtol=RTOL, atol=ATOL)
-            err = float((out - want).abs().max())
+        err = check_fused(torch, fp, dbase, [call], "per-query")
         fp_err = max(fp_err, err)
         nbytes, nops = fp.roofline(*args)
         ms = timed(torch, lambda: real_fp(*args), 20)
@@ -186,83 +362,193 @@ def main() -> int:
         regions.append({
             "term": program.term[0], "rows": int(args[2].shape[0]), "out": list(program.out[:4]),
             "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": nops,
-            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S),
-            "max_abs_err": err,
+            "bound_ms": bound_ms(nbytes, nops), "max_abs_err": err,
         })
         print(f"fused region {program.term[0]} ({program.dicts and [d.ds for d in program.dicts]}): "
               f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {regions[-1]['bound_ms']:.4f} ms, "
               f"max |kernel-plain| {err:.4g}")
 
-    ml_rows, ml_err = [], 0.0
-    for (args, out) in ml_calls:
-        keys, vals, qs = args
-        want = ml.merge_lookup_plain(keys, vals, qs)
-        torch.cuda.synchronize()
-        check(torch.equal(out[1], want[1]), "merge lookup: found flags differ from the plain twin")
-        err = float((out[0] - want[0]).abs().max()) if qs.numel() else 0.0
-        check(err == 0.0, f"merge lookup: values differ from the plain twin by {err}")
-        C, V, n = keys.shape[0], vals.shape[1], qs.shape[0]
-        lo = int(torch.searchsorted(keys, qs[:1]).item()) if n else 0
-        hi = int(torch.searchsorted(keys, qs[-1:], right=True).item()) if n else 0
-        span = min(C, hi - lo + 1)  # table rows these sorted probes can touch
-        nbytes = span * 4 * (1 + V) + n * 4 + n * (4 * V + 1)
-        nops = n * 13  # one compare per window search round
-        ms = timed(torch, lambda: real_ml(keys, vals, qs), 20)
-        plain_ms = timed(torch, lambda: ml.merge_lookup_plain(keys, vals, qs), 20)
-
-        def library():
-            idx = torch.searchsorted(keys, qs).clamp_(max=C - 1)
-            return vals[idx], keys[idx] == qs
-
-        lib_ms = timed(torch, library, 20)
-        ml_rows.append({"C": C, "V": V, "n": n, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                        "bytes": nbytes, "ops": nops,
-                        "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S)})
-        ml_err = max(ml_err, err)
-        print(f"merge lookup C={C} V={V} n={n}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"searchsorted+gather {lib_ms:.3f} ms, bound {ml_rows[-1]['bound_ms']:.4f} ms")
+    check_merge(torch, ml, ml_calls, "per-query")
+    ml_rows = []
+    for (keys, vals, qs), _ in ml_calls:
+        ml_rows.append(merge_row(torch, ml, real_ml, keys, vals, qs, 20))
+    del fp_calls, ml_calls, calls
 
     # where a warm pass spends device time, and how long the device idles
-    from torch.profiler import ProfilerActivity, profile
+    print(json.dumps({"profile": profile_pass(torch, lambda: [session.query(q) for q in QUERIES], 12)}))
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for q in QUERIES:
-            session.query(q)
-        torch.cuda.synchronize()
-        pass_s = time.perf_counter() - t
-    # device events only (kernels, copies, sets): an aten op on the host also
-    # carries its kernels' device time, so summing every event counts twice;
-    # busy time is the union of the device events' intervals
-    from torch.autograd import DeviceType
+    # -- 7. the TPC-H shared batch, counts from zero ----------------------------
+    stamp("7. TPC-H shared batch")
+    plans = [session.shape(q).plan for q in QUERIES]
+    sp = P.merge_shared_scans(plans, sigma=session.sigma, fusion=card_fusion)
+    merged = {rg.source: len(rg.branches) for rg in sp.regions}
+    print(f"TPC-H shared batch: {merged}")
+    check(merged == TPCH_MERGE, f"the five queries merge as {merged}, not {TPCH_MERGE}")
+    batch_params = [REGISTRY[q].bind_defaults({}) for q in QUERIES]
+    with recording(kernels_of_path) as calls:
+        ex = E.cached_shared_executable(sp, session.db, sigma=session.sigma)
+        outs, batch_cold = wall(torch, lambda: ex(session.db, batch_params))
+    launches["tpch_batch"] = {name: getattr(mod, name).launches for mod, name in kernels_of_path}
+    batch_modes = ex.last_report.modes()
+    print(f"TPC-H batch (cold {batch_cold:.2f}s): modes {batch_modes}; launches {launches['tpch_batch']}")
+    eligible = sum(isinstance(b.pipe.stages[-1], (P.GroupBy, P.GroupJoin, P.Reduce))
+                   for rg in sp.regions for b in rg.branches)
+    check(launches["tpch_batch"]["fused_pipeline"] >= eligible,
+          f"fewer fused-pipeline launches than the batch's {eligible} aggregating branches")
+    check(any(m.startswith("shared:") for m in batch_modes.values()), "no branch ran the plain shared pass")
+    for q, out in zip(QUERIES, outs):
+        got = out.items_np()
+        same_items(got, per_query[q], f"{q} (shared batch vs per-query)")
+        same_items(got, refs[q], f"{q} (shared batch vs numpy)")
+    fp_err = max(fp_err, check_fused(torch, fp, dbase, calls["fused_pipeline"], "TPC-H batch"))
+    check_merge(torch, ml, calls["merge_lookup"], "TPC-H batch")
+    del calls, outs
+    # results to the host as session.query returns them, so the walls compare
+    _, batch_warm = wall(torch, lambda: [o.items_np() for o in ex(session.db, batch_params)])
+    print(f"TPC-H batch warm {batch_warm * 1e3:.1f} ms vs per-query warm sum "
+          f"{sum(walls.values()) * 1e3:.1f} ms")
+    print(json.dumps({"profile_tpch_batch": profile_pass(
+        torch, lambda: [o.items_np() for o in ex(session.db, batch_params)], 8)}))
 
-    def on_device(e):
-        return e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+    del session, db, ex, plans, sp
+    E.clear_exec_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    busy_us, reach = 0.0, float("-inf")
-    for s, e in sorted((e.time_range.start, e.time_range.end) for e in prof.events() if on_device(e)):
-        busy_us += max(0.0, e - max(s, reach))
-        reach = max(reach, e)
-    check(busy_us > 0, "the profiler saw no device time")
-    ops = sorted((e for e in prof.key_averages() if on_device(e)), key=lambda e: -e.self_device_time_total)
-    top = [{"op": e.key[:60], "device_ms": e.self_device_time_total / 1e3, "calls": e.count}
-           for e in ops[:12]]
-    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
-    top_host = [{"op": e.key[:60], "host_ms": e.self_cpu_time_total / 1e3, "calls": e.count}
-                for e in host[:12]]
-    print(json.dumps({"profile": {"pass_ms": pass_s * 1e3, "device_busy_ms": busy_us / 1e3,
-                                  "device_idle_share": 1.0 - busy_us / 1e6 / pass_s,
-                                  "top_device": top, "top_host": top_host}}))
+    # -- 8. in-DB ML at Retailer scale, counts from zero ----------------------
+    stamp("8. in-DB ML")
+    t0 = time.perf_counter()
+    S_np, R_np = snowflake(N_FACT, N_DIM, ML_SEED)
+    S = from_numpy(S_np, sorted_on=("s",), device=dev)
+    R = from_numpy(R_np, sorted_on=("s",), device=dev)
+    ml_db = {"S": S, "R": R}
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    f64 = np.float64
+    i64, u64, c64 = S_np["i"].astype(f64), S_np["u"].astype(f64), R_np["c"][S_np["s"]].astype(f64)
+    want = {"i_i": float(np.sum(i64 * i64)), "i_c": float(np.sum(i64 * c64)), "c_c": float(np.sum(c64 * c64)),
+            "b_i": float(np.sum(i64 * u64)), "b_c": float(np.sum(c64 * u64))}
+    del S_np, i64, u64, c64
+    t0 = time.perf_counter()
+    sigma = collect_stats(ml_db)
+    print(f"in-DB ML data: S {S.nrows} x R {R.nrows} rows on {dev} (generated {gen_s:.1f}s, "
+          f"stats {time.perf_counter() - t0:.1f}s); resident "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    def close(got, what):
+        for k, v in got.items():
+            check(abs(float(v) - want[k]) <= 1e-3 * (abs(want[k]) + 1.0),
+                  f"{what}: {k} = {float(v)!r}, float64 numpy {want[k]!r}")
+
+    delta = AnalyticCostModel()
+    terms = O.covar_semiring_terms(with_b=True)
+    plans = [P.fuse(compile_plan(prog, synthesize(prog, sigma, delta).choices), sigma=sigma) for _, prog in terms]
+    sp = P.merge_shared_scans(plans, sigma=sigma, fusion=card_fusion)
+    print("covariance batch: " + ", ".join(f"{rg.source}×{len(rg.branches)}" for rg in sp.regions))
+    check({rg.source: len(rg.branches) for rg in sp.regions} == {"S": 5, "R": 3}, "the batch does not merge S×5, R×3")
+    ragg = synthesize(O.covar_interleaved(), sigma, delta).choices["Ragg"]
+    print(f"Algorithm 1's Ragg: {ragg}")
+    ex = E.cached_shared_executable(sp, ml_db, sigma=sigma)
+
+    def batch():
+        return {name: out[name] for (name, _), out in zip(terms, ex(ml_db, [{}] * len(plans)))}
+
+    paths = {
+        "batch": batch,
+        "factorized_alg1": lambda: E.covar_factorized(S, R, ragg_ds=ragg.ds, sorted_probes=ragg.hinted),
+        "factorized_lmfao": lambda: E.covar_factorized(S, R, ragg_ds="st_sorted", sorted_probes=True),
+        "naive": lambda: E.covar_naive(S, R),
+    }
+    cold, results = {}, {}
+    with recording(kernels_of_path) as calls:
+        for name, fn in paths.items():
+            results[name], cold[name] = wall(torch, fn)
+            if name == "batch":
+                batch_fused = len(calls["fused_pipeline"])
+                ml_modes = ex.last_report.modes()
+    launches["indb_ml"] = {name: getattr(mod, name).launches for mod, name in kernels_of_path}
+    for rg in sp.regions:
+        for b in rg.branches:
+            term = b.pipe.stages[-1]
+            print(f"  {rg.source} branch of plan {b.plan_idx} ({terms[b.plan_idx][0]}): "
+                  f"{type(term).__name__} {term.out} -> {ml_modes[term.out]}")
+    print(f"covariance batch: {batch_fused} fused-pipeline launches; launches on the in-DB ML path "
+          f"{launches['indb_ml']}")
+    for name, got in results.items():
+        close(got, name)
+        print(f"{name} (cold {cold[name]:.2f}s): " + ", ".join(f"{k}={float(v):.6g}" for k, v in got.items()))
+    cov = {k: float(v) for k, v in results["batch"].items()}
+    theta = np.linalg.solve(np.array([[cov["i_i"], cov["i_c"]], [cov["i_c"], cov["c_c"]]]),
+                            np.array([cov["b_i"], cov["b_c"]]))
+    print(f"theta = ({theta[0]:.4f}, {theta[1]:.4f}), ground truth (0.8, -0.5)")
+    check(abs(theta[0] - 0.8) < 0.05 and abs(theta[1] + 0.5) < 0.05, "theta does not recover the model")
+    eligible = sum(isinstance(b.pipe.stages[-1], (P.GroupBy, P.GroupJoin, P.Reduce))
+                   for rg in sp.regions for b in rg.branches)
+    check(batch_fused == eligible, f"{batch_fused} fused-pipeline launches for {eligible} eligible branches")
+    check(launches["indb_ml"]["segment_reduce"] >= 2, "fewer than 2 segment-reduce launches")
+    check(launches["indb_ml"]["merge_lookup"] >= 1, "no merge-lookup launch on the in-DB ML path")
+
+    stamp("8. in-DB ML: kernels against their twins")
+    sr_err = check_segment(torch, sr, calls["segment_reduce"], "in-DB ML")
+    fp_err = max(fp_err, check_fused(torch, fp, dbase, calls["fused_pipeline"], "covariance batch"))
+    check_merge(torch, ml, calls["merge_lookup"], "in-DB ML")
+    stamp("8. in-DB ML: kernel times")
+    cov_fused = []
+    for args, _ in calls["fused_pipeline"][:batch_fused]:
+        cov_fused.append({"term": args[0].term[0], "out": list(args[0].out[:2]),
+                          "ms": timed(torch, lambda: real_fp(*args), 3)})
+    print(json.dumps({"covariance_batch_fused_ms": cov_fused}))
+    (mkeys, mvals, mqs), _ = calls["merge_lookup"][-1]
+    ml_rows.append(merge_row(torch, ml, real_ml, mkeys, mvals, mqs, 10))
+    (skeys, svals), _ = calls["segment_reduce"][0]
+    del calls, mkeys, mvals, mqs
+    gc.collect()
+
+    n, V = svals.shape
+    sr_bytes, sr_ops = n * (4 + 4 * V) + n * (4 * V + 1), n * V
+    sr_ms = timed(torch, lambda: real_sr(skeys, svals), 20)
+    sr_plain_ms = timed(torch, lambda: sr.segment_reduce_plain(skeys, svals), 5)
+
+    def sr_library():  # two calls: run lengths, then the segmented sum
+        _, counts = torch.unique_consecutive(skeys, return_counts=True)
+        return torch.segment_reduce(svals, "sum", lengths=counts, axis=0)
+
+    sr_lib_ms = timed(torch, sr_library, 5)
+    sr_row = {"n": n, "V": V, "ms": sr_ms, "plain_ms": sr_plain_ms, "library_ms": sr_lib_ms,
+              "bytes": sr_bytes, "ops": sr_ops, "bound_ms": bound_ms(sr_bytes, sr_ops)}
+    print(f"segment reduce n={n} V={V}: kernel {sr_ms:.3f} ms, bound {sr_row['bound_ms']:.4f} ms, "
+          f"plain {sr_plain_ms:.3f} ms, unique_consecutive+segment_reduce (two calls) {sr_lib_ms:.3f} ms; "
+          f"max |kernel-plain| {sr_err:.4g}")
+    del skeys, svals
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    stamp("8. in-DB ML: warm walls")
+    warm, peak = {}, {}
+    base = torch.cuda.memory_allocated()
+    for name, fn in paths.items():
+        torch.cuda.reset_peak_memory_stats()
+        got, warm[name] = wall(torch, fn)
+        close(got, f"{name} (warm)")
+        peak[name] = torch.cuda.max_memory_allocated()
+        del got
+        print(f"warm {name}: {warm[name] * 1e3:.1f} ms; peak device memory {peak[name] / 2**30:.2f} GiB "
+              f"({base / 2**30:.2f} GiB resident before)")
+    print(f"max_memory_allocated over the in-DB ML phase's warm paths: {max(peak.values()) / 2**30:.2f} GiB")
+    for name, fn in paths.items():
+        print(json.dumps({"profile_" + name: profile_pass(torch, fn, 6)}))
+
+    # -- 9. the kernels' line ---------------------------------------------------
+    total = {name: sum(path[name] for path in launches.values()) for _, name in kernels_of_path}
 
     def entry(name, source, replaces, rows, err, library_ms):
         nbytes = sum(r["bytes"] for r in rows)
         nops = sum(r["ops"] for r in rows)
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err,
+            "launches": total[name], "max_abs_err": err,
             "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": 1e3 * max(nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S),
+            "bound_ms": bound_ms(nbytes, nops),
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= nops / FP32_OPS_PER_S else "operations",
             "library_ms": library_ms,
         }
@@ -271,11 +557,16 @@ def main() -> int:
         entry("fused_pipeline", "src/repro_torch/kernels/csrc/fused_kernels.cuh",
               "src/repro/kernels/fused_pipeline.py:388", regions, fp_err, None),
         entry("merge_lookup", "src/repro_torch/kernels/csrc/merge_lookup.cu",
-              "src/repro/kernels/merge_lookup.py:93", ml_rows, ml_err,
+              "src/repro/kernels/merge_lookup.py:93", ml_rows, 0.0,
               sum(r["library_ms"] for r in ml_rows)),
+        entry("segment_reduce", "src/repro_torch/kernels/csrc/segment_reduce.cu",
+              "src/repro/kernels/segment_reduce.py:83", [sr_row], sr_err, sr_lib_ms),
     ]
-    print(json.dumps({"regions": regions, "merge_lookups": ml_rows, "warm_query_ms":
-                      {q: walls[q] * 1e3 for q in QUERIES}}))
+    print(json.dumps({"regions": regions, "merge_lookups": ml_rows, "segment_reduce": sr_row,
+                      "warm_query_ms": {q: walls[q] * 1e3 for q in QUERIES},
+                      "tpch_batch_warm_ms": batch_warm * 1e3,
+                      "indb_ml_warm_ms": {k: v * 1e3 for k, v in warm.items()},
+                      "indb_ml_peak_bytes": peak, "launches_by_path": launches}))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

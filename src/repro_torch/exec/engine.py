@@ -13,6 +13,12 @@ card, its plain twin on the CPU); every other region runs as plain PyTorch
 on the tables' device (mode ``"xla"``, as the reference computes those
 regions in XLA outside Pallas).  Sorted-probe lookups of sort-family
 dictionaries go through the merge-lookup kernel.
+
+Shared-scan batches (``execute_shared_plan``, ``SharedExecutable``) run
+every plan of a ``plan.SharedPlan`` with each merged region executed once
+for all its branches.  The in-DB ML operators (``sort_groupby_arrays``,
+``covar_factorized``, ``covar_naive``) aggregate sorted runs through the
+segment-reduce kernel.
 """
 from __future__ import annotations
 
@@ -582,33 +588,46 @@ def _terminal_family(term) -> str:
 # ---------------------------------------------------------------------------
 
 
+def _region_input(pipe, env, db) -> Tuple[Frame, tuple]:
+    """The frame a region streams over and the stages that run on it."""
+    stages = pipe.stages
+    if not isinstance(stages[0], P.Scan):
+        f = env[pipe.source]
+        if not isinstance(f, Frame):
+            raise TypeError(f"{pipe.source} is not a row frame")
+        return f, stages
+    sc = stages[0]
+    if sc.source in env:
+        src = env[sc.source]
+        if isinstance(src, BuiltDict):
+            t, rel = _dict_scan_table(src), None
+        elif isinstance(src, Table):
+            t, rel = src, None
+        else:
+            raise TypeError(f"cannot scan {sc.source}")
+    else:
+        t, rel = db[sc.source], sc.source
+    return Frame({sc.var: t}, (sc.var,), {sc.var: rel}), stages[1:]
+
+
+def _pruned_src_cols(rest, env, need) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Per probe, the build-side columns later stages read."""
+    src_cols: Dict[str, Dict[str, torch.Tensor]] = {}
+    for node in rest:
+        if isinstance(node, P.HashProbe):
+            b = env[node.build]
+            want = need.get(node.inner_var, ())
+            src_cols[node.out] = {c: b.src.col(c) for c in b.src.names() if c in want}
+    return src_cols
+
+
 def _run_pipeline(pipe, env, refs, db, sigma, allow_sorted, params):
     """Execute a fused ``Pipeline`` region as one streaming pass: the
     fused-pipeline kernel when the region is eligible, else the region's
     stages as plain PyTorch with pruned probe gathers (only build-side
     columns later stages read are gathered)."""
     need = P.needed_columns(pipe.stages)
-    stages = pipe.stages
-    if isinstance(stages[0], P.Scan):
-        sc = stages[0]
-        if sc.source in env:
-            src = env[sc.source]
-            if isinstance(src, BuiltDict):
-                t, rel = _dict_scan_table(src), None
-            elif isinstance(src, Table):
-                t, rel = src, None
-            else:
-                raise TypeError(f"cannot scan {sc.source}")
-        else:
-            t, rel = db[sc.source], sc.source
-        f = Frame({sc.var: t}, (sc.var,), {sc.var: rel})
-        rest = stages[1:]
-    else:
-        f = env[pipe.source]
-        if not isinstance(f, Frame):
-            raise TypeError(f"{pipe.source} is not a row frame")
-        rest = stages
-
+    f, rest = _region_input(pipe, env, db)
     _faults.check("fused-region", detail=pipe.out)
     if _kernel_pipeline(pipe, rest, f, env, refs, sigma, params, need):
         return
@@ -617,13 +636,7 @@ def _run_pipeline(pipe, env, refs, db, sigma, allow_sorted, params):
         "xla-radix-planned" if getattr(pipe, "partitions", 0) else "xla",
         family=_terminal_family(rest[-1]),
     )
-    src_cols: Dict[str, Dict[str, torch.Tensor]] = {}
-    for node in rest:
-        if isinstance(node, P.HashProbe):
-            b = env[node.build]
-            want = need.get(node.inner_var, ())
-            src_cols[node.out] = {c: b.src.col(c) for c in b.src.names() if c in want}
-    _region_stages(rest, f, env, refs, src_cols, params, sigma, allow_sorted)
+    _region_stages(rest, f, env, refs, _pruned_src_cols(rest, env, need), params, sigma, allow_sorted)
 
 
 def _region_stages(rest, f, env, refs, src_cols, params, sigma, allow_sorted):
@@ -852,6 +865,120 @@ def _kernel_pipeline(pipe, rest, f, env, refs, sigma, params, need) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# cross-plan shared-scan execution
+# ---------------------------------------------------------------------------
+
+
+def _run_shared_region(region, envs, refss, db, sigma, allow_sorted, params_list):
+    """Execute one shared-scan region and publish each branch's terminal
+    into its owning plan's environment.
+
+    Each branch the fused-pipeline kernel takes runs as its own launch
+    (mode ``kernel-resident``), as the reference runs each branch through
+    ``_run_pipeline`` under its kernel policy.  The remaining branches run
+    as one plain-PyTorch pass: every branch re-frames the same scan-table
+    column tensors and runs the region stages (mode ``shared:M``, M the
+    branches in that pass).  Eager PyTorch reads the columns once per
+    branch; the reference's XLA pass reads them once."""
+    plain = []
+    for br in region.branches:
+        env, refs = envs[br.plan_idx], refss[br.plan_idx]
+        need = P.needed_columns(br.pipe.stages)
+        f, rest = _region_input(br.pipe, env, db)
+        _faults.check("fused-region", detail=br.pipe.out)
+        if not _kernel_pipeline(br.pipe, rest, f, env, refs, sigma, params_list[br.plan_idx], need):
+            plain.append((br, f, rest, need))
+    for br, f, rest, need in plain:
+        env = envs[br.plan_idx]
+        _region_stages(
+            rest, f, env, refss[br.plan_idx], _pruned_src_cols(rest, env, need),
+            params_list[br.plan_idx], sigma, allow_sorted,
+        )
+        _record_region(br.pipe.out, f"shared:{len(plain)}", family=_terminal_family(rest[-1]))
+
+
+def execute_shared_plan(sp, db: Dict[str, Table], sigma=None, allow_sorted: bool = True, params_list=None):
+    """Execute every plan of a ``SharedPlan``, running each shared-scan
+    region once for all its branches.  Results come back in ``sp.plans``
+    order, each equal to what per-query ``execute_plan`` returns."""
+    nplans = len(sp.plans)
+    if params_list is None:
+        params_list = [None] * nplans
+    envs: List[Dict[str, object]] = [{} for _ in range(nplans)]
+    refss: List[Dict[str, object]] = [{} for _ in range(nplans)]
+    rep = _begin_report()
+    t_plan = time.perf_counter()
+    try:
+        return _execute_shared_plan_body(sp, db, sigma, allow_sorted, params_list, envs, refss, rep)
+    finally:
+        _end_report(rep, time.perf_counter() - t_plan)
+
+
+def _execute_shared_plan_body(sp, db, sigma, allow_sorted, params_list, envs, refss, rep):
+    """The readiness scheduler: each plan advances node by node until it
+    stalls on a shared region that has not run; a region runs once every
+    branch's external inputs (build-side dictionaries of its own plan)
+    exist; nodes a region covers are skipped, since the region publishes
+    their terminal symbols."""
+    region_of: Dict[Tuple[int, str], int] = {}
+    for ri, rg in enumerate(sp.regions):
+        for b in rg.branches:
+            for s in b.covered:
+                region_of[(b.plan_idx, s)] = ri
+    done = [False] * len(sp.regions)
+    pos = [0] * len(sp.plans)
+
+    def _ready(rg) -> bool:
+        for b in rg.branches:
+            own = {st.out for st in b.pipe.stages}
+            env, refs = envs[b.plan_idx], refss[b.plan_idx]
+            for st in b.pipe.stages:
+                for r in P._node_refs(st):
+                    if r in own or r == b.pipe.source or r in db:
+                        continue
+                    if r not in env and r not in refs:
+                        return False
+        return True
+
+    while True:
+        progress = False
+        for i, p in enumerate(sp.plans):
+            while pos[i] < len(p.nodes):
+                nd = p.nodes[pos[i]]
+                ri = region_of.get((i, nd.out))
+                if ri is not None and not done[ri]:
+                    break  # stalled on a pending shared region
+                if ri is None:
+                    t_node = time.perf_counter()
+                    _exec_node(nd, envs[i], refss[i], db, sigma, allow_sorted, params_list[i])
+                    if isinstance(nd, P.Pipeline):
+                        rec = rep.regions.get(nd.out)
+                        if rec is not None and rec.wall_s == 0.0:
+                            rec.wall_s = time.perf_counter() - t_node
+                pos[i] += 1
+                progress = True
+        if all(pos[i] >= len(p.nodes) for i, p in enumerate(sp.plans)):
+            break
+        for ri, rg in enumerate(sp.regions):
+            if not done[ri] and _ready(rg):
+                t_rg = time.perf_counter()
+                _run_shared_region(rg, envs, refss, db, sigma, allow_sorted, params_list)
+                dt = time.perf_counter() - t_rg
+                for b in rg.branches:
+                    rec = rep.regions.get(b.pipe.stages[-1].out)
+                    if rec is not None and rec.wall_s == 0.0:
+                        rec.wall_s = dt
+                done[ri] = True
+                progress = True
+        if not progress:  # pragma: no cover
+            raise RuntimeError(
+                "shared-scan scheduler stalled: a region's inputs depend on "
+                "nodes the region itself covers"
+            )
+    return [_plan_result(p, envs[i], refss[i]) for i, p in enumerate(sp.plans)]
+
+
+# ---------------------------------------------------------------------------
 # executable cache: plan once per query shape, execute many bindings
 # ---------------------------------------------------------------------------
 
@@ -974,9 +1101,14 @@ class Executable:
         rep = last_report()
         rep.trace_count = self.trace_count
         self.last_report = rep
-        if isinstance(out, DictResult):
-            return PlanResult(out.ds, *out.arrays())
-        return out
+        return _result_view(out)
+
+
+def _result_view(out):
+    """A plan's result as callers receive it: dictionaries as array views."""
+    if isinstance(out, DictResult):
+        return PlanResult(out.ds, *out.arrays())
+    return out
 
 
 _EXEC_CACHE: Dict[tuple, Executable] = {}
@@ -1014,3 +1146,154 @@ def cached_executable(plan, db: Dict[str, Table], sigma=None) -> Executable:
             _EXEC_CACHE.pop(next(iter(_EXEC_CACHE)))
         _EXEC_CACHE[key] = ex
     return ex
+
+
+class SharedExecutable:
+    """A planned multi-query batch (a ``SharedPlan``), run eagerly on the
+    tables' device; shared regions run once for all their branches.  Output
+    order matches ``sp.plans`` and each result is wrapped as
+    :class:`Executable` wraps it, so callers demultiplex by position.
+    ``trace_count`` is 1 after the first call and stays there."""
+
+    def __init__(self, sp, db: Dict[str, Table], sigma=None):
+        self.sp = sp
+        self.sigma = sigma
+        self.trace_count = 0
+        self.calls = 0
+        self.last_report: Optional[ExecutionReport] = None
+
+    def coerce_params(self, params_list=None, device="cpu"):
+        params_list = params_list or [None] * len(self.sp.plans)
+        return [coerce_bindings(p, params_list[i], device=device) for i, p in enumerate(self.sp.plans)]
+
+    def __call__(self, db: Dict[str, Table], params_list=None):
+        self.calls += 1
+        device = next(iter(db.values())).device
+        _faults.check("kernel-launch", detail="shared")
+        try:
+            outs = execute_shared_plan(
+                self.sp, db, sigma=self.sigma,
+                params_list=self.coerce_params(params_list, device=device),
+            )
+        except Exception as e:  # noqa: BLE001 — boundary translation only
+            _raise_classified(e)
+        self.trace_count = max(self.trace_count, 1)
+        rep = last_report()
+        rep.trace_count = self.trace_count
+        self.last_report = rep
+        return [_result_view(out) for out in outs]
+
+
+_SHARED_EXEC_CACHE: Dict[tuple, SharedExecutable] = {}
+
+
+def cached_shared_executable(sp, db: Dict[str, Table], sigma=None) -> SharedExecutable:
+    """Shared-batch twin of :func:`cached_executable`: keyed by the
+    SharedPlan fingerprint (plan fingerprints + merged regions), schema and
+    Σ signature."""
+    key = (sp.fingerprint(), _db_signature(db), _sigma_signature(sigma))
+    ex = _SHARED_EXEC_CACHE.get(key)
+    if ex is None:
+        _faults.check("compile", detail="shared")
+        ex = SharedExecutable(sp, db, sigma=sigma)
+        if len(_SHARED_EXEC_CACHE) >= _EXEC_CACHE_MAX:
+            _SHARED_EXEC_CACHE.pop(next(iter(_SHARED_EXEC_CACHE)))
+        _SHARED_EXEC_CACHE[key] = ex
+    return ex
+
+
+def clear_exec_cache() -> None:
+    """Drop every cached executable, single-query and shared."""
+    _EXEC_CACHE.clear()
+    _SHARED_EXEC_CACHE.clear()
+
+
+# ---------------------------------------------------------------------------
+# sort-based aggregation via the segment-reduce kernel (direct form)
+# ---------------------------------------------------------------------------
+
+
+def sort_groupby_arrays(keys, vals, valid=None, assume_sorted: bool = False):
+    """``(keys [n], sums [n, V], ends [n])``: run totals at run ends.  The
+    raw sort-aggregate pipeline (sort, then segment reduce), used by the
+    in-DB ML operator where the dictionary object itself is not needed.
+    Masked rows become PAD keys with zero values and sort to the tail; the
+    sort is stable, as ``jnp.argsort`` is, so sums fold in the same order."""
+    if vals.dim() == 1:
+        vals = vals[:, None]
+    keys = keys.to(torch.int32)
+    vals = vals.to(torch.float32)
+    if valid is not None:
+        valid = valid.to(torch.bool)
+        keys = torch.where(valid, keys, dbase.PAD)
+        vals = torch.where(valid[:, None], vals, _zero(vals))
+        assume_sorted = False
+    if not assume_sorted:
+        perm = torch.argsort(keys, stable=True)
+        keys, vals = keys[perm], vals[perm]
+    sums, ends = kops.segment_reduce(keys.contiguous(), vals.contiguous())
+    return keys, sums, ends
+
+
+# ---------------------------------------------------------------------------
+# in-DB ML: factorized covariance (paper Fig. 7d)
+# ---------------------------------------------------------------------------
+
+
+def covar_factorized(
+    s_table: Table,
+    r_table: Table,
+    join_col: str = "s",
+    i_col: str = "i",
+    c_col: str = "c",
+    ragg_ds: str = "st_sorted",
+    sorted_probes: bool = True,
+    ragg_capacity: Optional[int] = None,
+) -> Dict[str, torch.Tensor]:
+    """Covariance terms over S ⋈ R without materializing the join.
+
+    S's inner partial aggregates (i·i, i, 1 per join key — Fig. 7d's
+    ``sagg``) come from one segment-reduce pass (no sort when S is ordered
+    on the join column); R's partial aggregates (m, c, c·c — ``Ragg``) are
+    one group-by; the combine probes Ragg with S's run keys, a sorted probe
+    stream (the hinted, merge-lookup path for sort-family dictionaries).
+    Results are 0-d float32 tensors on the tables' device."""
+    s = s_table.col(join_col)
+    i = s_table.col(i_col)
+    sagg_in = torch.stack([i * i, i, torch.ones_like(i)], dim=1)
+    skeys, ssums, sends = sort_groupby_arrays(
+        s, sagg_in, valid=s_table.mask,
+        assume_sorted=s_table.sorted_on[:1] == (join_col,),
+    )
+    c = r_table.col(c_col)
+    ragg_in = torch.stack([torch.ones_like(c), c, c * c], dim=1)  # m, c, c_c
+    cap = ragg_capacity or capacity_for(ragg_ds, r_table.nrows)
+    ragg = groupby(
+        r_table, r_table.col(join_col), ragg_in, ragg_ds, cap,
+        assume_sorted=r_table.sorted_on[:1] == (join_col,),
+    )
+    rvals, found = lookup_dict(ragg, skeys, valid=sends, sorted_probes=sorted_probes)
+    zero = _zero(rvals)
+    return {
+        "i_i": torch.where(found, ssums[:, 0] * rvals[:, 0], zero).sum(),
+        "i_c": torch.where(found, ssums[:, 1] * rvals[:, 1], zero).sum(),
+        "c_c": torch.where(found, ssums[:, 2] * rvals[:, 2], zero).sum(),
+    }
+
+
+def covar_naive(
+    s_table: Table,
+    r_table: Table,
+    join_col: str = "s",
+    i_col: str = "i",
+    c_col: str = "c",
+    index_ds: str = "ht_linear",
+) -> Dict[str, torch.Tensor]:
+    """Fig. 7a baseline: materialize the join (FK gather), then aggregate."""
+    cap = capacity_for(index_ds, r_table.nrows)
+    idx = build_index(index_ds, r_table.col(join_col), cap, valid=r_table.mask)
+    joined = fk_join(s_table, s_table.col(join_col), r_table, idx, take=[c_col], prefix="r_")
+    i = joined.col(i_col)
+    c = joined.col("r_" + c_col)
+    out = scalar_aggregate(joined, torch.stack([i * i, i * c, c * c], dim=1))
+    return {"i_i": out[0], "i_c": out[1], "c_c": out[2]}

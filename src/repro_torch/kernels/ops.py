@@ -13,6 +13,7 @@ import torch
 
 from . import merge_lookup as _ml
 from . import ref
+from . import segment_reduce as _sr
 
 
 def merge_lookup(table_keys, table_vals, queries) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -21,3 +22,9 @@ def merge_lookup(table_keys, table_vals, queries) -> Tuple[torch.Tensor, torch.T
     if table_keys.shape[0] >= 2 * _ml.WINDOW:
         return _ml.merge_lookup(table_keys, table_vals, queries)
     return ref.merge_lookup(table_keys, table_vals, queries)
+
+
+def segment_reduce(keys, vals) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Keys MUST be sorted ascending (PAD tail allowed).  The kernel on CUDA
+    tensors, its twin on CPU tensors."""
+    return _sr.segment_reduce(keys, vals)

@@ -7,8 +7,14 @@ from typing import Tuple
 import torch
 
 from .merge_lookup import merge_lookup_plain
+from .segment_reduce import segment_reduce_plain
 
 
 def merge_lookup(table_keys, table_vals, queries) -> Tuple[torch.Tensor, torch.Tensor]:
     """A lower-bound lookup in any probe order; sorted probes only change cost."""
     return merge_lookup_plain(table_keys, table_vals, queries)
+
+
+def segment_reduce(keys, vals) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run totals at run ends over sorted keys; PAD rows are never run ends."""
+    return segment_reduce_plain(keys, vals)

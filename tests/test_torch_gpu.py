@@ -8,6 +8,10 @@ The fused pipeline is generated per region, so the TPC-H regions run under
 every dictionary choice set (each family's find and accumulator is its own
 device code), and two scalar Reduce regions cover the block-reduction
 kernel.  Every launch is held against its plain twin on the same inputs.
+The segment reduce runs adversarial run layouts (one run over thousands of
+tiles, a PAD tail, a ragged last tile, V = 1 and 5), and the in-DB ML path
+(the normal-equation batch, the factorized and naive covariance) runs at a
+small size with every kernel launch held against its twin.
 """
 import contextlib
 
@@ -19,8 +23,9 @@ import repro_torch
 from repro_torch.core import llql as L
 from repro_torch.core import operators as O
 from repro_torch.core import plan as P
-from repro_torch.core.cost import DictChoice
+from repro_torch.core.cost import AnalyticCostModel, DictChoice
 from repro_torch.core.lower import compile as compile_plan
+from repro_torch.core.synthesis import synthesize
 from repro_torch.data import tpch
 from repro_torch.data.table import collect_stats, from_numpy
 from repro_torch.dicts import base as dbase
@@ -28,6 +33,7 @@ from repro_torch.exec import engine as E
 from repro_torch.exec.queries import REGISTRY
 from repro_torch.kernels import fused_pipeline as fp
 from repro_torch.kernels import merge_lookup as ml
+from repro_torch.kernels import segment_reduce as sr
 
 pytestmark = pytest.mark.gpu
 
@@ -185,3 +191,98 @@ def test_queries_on_card_match_reference(cuda):
         assert set(got) == set(ref)
         for k in ref:
             np.testing.assert_allclose(got[k], ref[k], rtol=3e-3, atol=3e-2)
+
+
+# (distinct keys, rows, V, PAD rows at the tail, integer-valued inputs)
+SEGMENT_CASES = {
+    "k30": (30, 2000, 2, 0, False),
+    "one_row": (4, 1, 3, 0, False),
+    # one run over 8,790 tiles: the carry pass crosses its 8,192-tile chunks
+    "all_equal": (1, 9_000_000, 3, 0, True),
+    "few_long_runs": (7, 9_000_000, 2, 1000, True),
+    "pad_tail": (40, 300_000, 3, 70_000, True),
+    "ragged": (5000, 3_000_001, 3, 0, False),
+    "v1": (60, 25_000, 1, 13, False),
+    "v5": (600, 250_000, 5, 0, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_segment_reduce_kernel_matches_plain(cuda, case):
+    nkeys, n, V, pad, ints = SEGMENT_CASES[case]
+    rng = np.random.default_rng(n + V)
+    keys = np.sort(rng.integers(0, nkeys, n)).astype(np.int32)
+    if pad:
+        keys[n - pad:] = dbase.PAD
+    # integer values in [-1, 1]: every partial sum stays below 2^24, so any
+    # summation order is exact
+    vals = (rng.integers(-1, 2, (n, V)) if ints else rng.normal(size=(n, V))).astype(np.float32)
+    k, v = torch.from_numpy(keys).to(cuda), torch.from_numpy(vals).to(cuda)
+    before = sr.segment_reduce.launches
+    gs, ge = sr.segment_reduce(k, v)
+    torch.cuda.synchronize()
+    assert sr.segment_reduce.launches == before + 1
+    ps, pe = sr.segment_reduce_plain(k, v)
+    assert torch.equal(ge, pe)
+    if ints:
+        assert torch.equal(gs, ps)
+    else:
+        torch.testing.assert_close(gs, ps, rtol=RTOL, atol=ATOL)
+
+
+def test_segment_reduce_kernel_refuses_what_it_does_not_take(cuda):
+    k = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        sr.segment_reduce(k, torch.zeros((8, 2), dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):
+        sr.segment_reduce(k, torch.zeros((2, 8), device=cuda).t())
+    with pytest.raises(ValueError):
+        sr.segment_reduce(k.cpu(), torch.zeros((8, 2), device=cuda))
+
+
+def test_indb_ml_path_on_card(cuda):
+    """The normal-equation batch, the factorized covariance under Alg. 1's
+    Ragg choice and under the LMFAO policy, and the naive join, against
+    float64 numpy; every kernel launch against its twin."""
+    rng = np.random.default_rng(0)
+    n_fact, n_dim = 200_000, 3000
+    c = rng.normal(size=n_dim).astype(np.float32)
+    s = np.sort(rng.integers(0, n_dim, n_fact)).astype(np.int32)
+    i = rng.normal(size=n_fact).astype(np.float32)
+    u = (0.8 * i - 0.5 * c[s] + 0.1 * rng.normal(size=n_fact)).astype(np.float32)
+    S = from_numpy({"s": s, "i": i, "u": u}, sorted_on=("s",), device=cuda)
+    R = from_numpy({"s": np.arange(n_dim, dtype=np.int32), "c": c}, sorted_on=("s",), device=cuda)
+    db = {"S": S, "R": R}
+    sigma, delta = collect_stats(db), AnalyticCostModel()
+    f64 = np.float64
+    cs = c[s].astype(f64)
+    want = {"i_i": np.sum(i.astype(f64) ** 2), "i_c": np.sum(i * cs), "c_c": np.sum(cs * cs),
+            "b_i": np.sum(i.astype(f64) * u), "b_c": np.sum(cs * u)}
+
+    def close(got):
+        for k, v in got.items():
+            assert abs(float(v) - want[k]) <= 1e-3 * (abs(want[k]) + 1.0), (k, float(v), want[k])
+
+    terms = O.covar_semiring_terms(with_b=True)
+    plans = [P.fuse(compile_plan(prog, synthesize(prog, sigma, delta).choices), sigma=sigma) for _, prog in terms]
+    sp = P.merge_shared_scans(plans, sigma=sigma)
+    assert {rg.source: len(rg.branches) for rg in sp.regions} == {"S": 5, "R": 3}
+    ragg = synthesize(O.covar_interleaved(), sigma, delta).choices["Ragg"]
+    with recording(fp, "fused_pipeline") as fused, recording(ml, "merge_lookup") as merged, \
+            recording(sr, "segment_reduce") as segs:
+        outs = E.cached_shared_executable(sp, db, sigma=sigma)(db, [{}] * len(plans))
+        modes = E.last_report().modes()
+        close({name: out[name] for (name, _), out in zip(terms, outs)})
+        close(E.covar_factorized(S, R, ragg_ds=ragg.ds, sorted_probes=ragg.hinted))
+        close(E.covar_factorized(S, R, ragg_ds="st_sorted", sorted_probes=True))
+        close(E.covar_naive(S, R))
+    assert set(modes.values()) == {"kernel-resident"}, modes
+    assert len(fused) == 8 and len(segs) == 2 and merged
+    _fused_calls_match_plain(fused)
+    for (keys, vals, qs), (gv, gf) in merged:
+        pv, pf = ml.merge_lookup_plain(keys, vals, qs)
+        assert torch.equal(gf, pf) and torch.equal(gv, pv)
+    for (keys, vals), (gs, ge) in segs:
+        ps, pe = sr.segment_reduce_plain(keys, vals)
+        assert torch.equal(ge, pe)
+        torch.testing.assert_close(gs, ps, rtol=RTOL, atol=ATOL)

@@ -5,7 +5,9 @@
 * the fused pipeline's plain twin (the port's ``kernel-resident`` path on
   CPU tensors) against ``repro``'s region result for every terminal kind;
 * the CUDA emitter writes a source for every eligible region of the five
-  TPC-H queries.
+  TPC-H queries;
+* the plain segment reduce against ``repro``'s Pallas kernel in interpret
+  mode and against its semantic oracle (``repro.kernels.ref``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,7 @@ from repro.data.table import from_numpy as rfrom_numpy
 from repro.exec import engine as RE
 from repro.kernels import ref as rref
 from repro.kernels.merge_lookup import merge_lookup as r_merge_lookup
+from repro.kernels.segment_reduce import segment_reduce as r_segment_reduce
 
 import repro_torch
 from repro_torch.core import llql as TL
@@ -35,6 +38,8 @@ from repro_torch.data.table import collect_stats as tstats
 from repro_torch.exec import engine as TE
 from repro_torch.kernels import fused_pipeline as fp
 from repro_torch.kernels import merge_lookup as ml
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import segment_reduce as sr
 
 RTOL, ATOL = 3e-3, 3e-2  # float32 sums folded in another order
 
@@ -224,3 +229,60 @@ def test_emitter_writes_source_for_every_tpch_region(tpch_programs):
         assert "__device__ __forceinline__ bool row(" in src
         assert src.count("{") == src.count("}")
         assert fp.emit_source(program) == src  # deterministic: names the build
+
+
+# ---------------------------------------------------------------------------
+# segment reduce
+# ---------------------------------------------------------------------------
+
+# (distinct keys, rows, reference block, value lanes, PAD rows at the tail,
+# integer-valued inputs): the cases of tests/test_kernels.py, then one key
+# over many blocks, a single row, a PAD tail, a ragged last block, V = 1, 5
+SEGMENT_CASES = {
+    "k30": (30, 2000, 256, 2, 0, False),
+    "k3": (3, 1500, 512, 2, 0, False),
+    "k1": (1, 600, 128, 2, 0, False),
+    "k1200": (1200, 2048, 1024, 2, 0, False),
+    "all_equal": (1, 5000, 128, 3, 0, True),
+    "one_row": (4, 1, 128, 3, 0, False),
+    "pad_tail": (40, 3000, 256, 3, 700, True),
+    "ragged": (500, 3001, 1024, 3, 0, False),
+    "v1": (60, 2500, 512, 1, 13, False),
+    "v5": (60, 2500, 512, 5, 0, True),
+}
+
+
+def _segment_inputs(nkeys, n, V, pad, ints, seed):
+    rng = np.random.default_rng(seed)
+    keys = np.sort(rng.integers(0, nkeys, n)).astype(np.int32)
+    if pad:
+        keys[n - pad:] = 2**31 - 1
+    if ints:
+        vals = rng.integers(-50, 50, (n, V)).astype(np.float32)
+    else:
+        vals = rng.normal(size=(n, V)).astype(np.float32)
+    return keys, vals
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_segment_reduce_plain_matches_reference(case):
+    nkeys, n, block, V, pad, ints = SEGMENT_CASES[case]
+    keys, vals = _segment_inputs(nkeys, n, V, pad, ints, seed=n + V)
+    ts, te = kops.segment_reduce(torch.from_numpy(keys), torch.from_numpy(vals))
+    assert sr.segment_reduce.launches == 0  # CPU tensors take the twin
+    for rs, re in (
+        r_segment_reduce(jnp.asarray(keys), jnp.asarray(vals), block=block, interpret=True),
+        rref.segment_reduce(jnp.asarray(keys), jnp.asarray(vals)),
+    ):
+        np.testing.assert_array_equal(te.numpy(), np.asarray(re))
+        if ints:  # integer-valued sums are exact in any order
+            np.testing.assert_array_equal(ts.numpy(), np.asarray(rs))
+        else:
+            np.testing.assert_allclose(ts.numpy(), np.asarray(rs), rtol=3e-4, atol=1e-4)
+    if pad:
+        assert not te[n - pad:].any() and not ts[n - pad:].any()
+
+
+def test_segment_reduce_plain_empty():
+    sums, ends = sr.segment_reduce(torch.zeros((0,), dtype=torch.int32), torch.zeros((0, 3)))
+    assert sums.shape == (0, 3) and ends.shape == (0,) and ends.dtype == torch.bool
