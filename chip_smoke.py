@@ -40,10 +40,28 @@ Phases (any failure exits non-zero):
    ``covar_naive``, each against float64 numpy, θ recovering (0.8, −0.5);
    >= 2 segment-reduce launches, >= 1 merge-lookup launch and one
    fused-pipeline launch per kernel-eligible branch of the batch; every
-   launch against its twin; the segment reduce and the new merge-lookup
-   shape timed beside their bounds, twins and library calls; warm walls and
-   peak device memory of each path;
-9. print the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+   launch against its twin; the segment reduce, the new merge-lookup shape
+   and every fused launch of the covariance batch timed beside their bounds
+   (twins and library calls where they exist); warm walls and peak device
+   memory of each path;
+9. out-of-core TPC-H at SF 10 (60,000,000 lineitem rows, seed 7): the
+   budget is the decoded bytes of every relation but lineitem, so the
+   storage plan streams lineitem alone in ``OOC_CHUNK_ROWS``-row chunks,
+   encoded and pinned in host memory.  The five queries run through
+   ``connect(db, memory_budget=B)`` cold and warm, each equal to its numpy
+   reference (computed meanwhile in worker processes, over the same seed's
+   data generated on the host) and to the resident session's result; every
+   lineitem region streams.  With the counts at 0, a warm pass: decode launches equal the
+   (chunk, non-plain column) pairs decoded, fused-pipeline launches equal
+   the chunks of the ``streamed-kernel:N`` regions plus the resident
+   regions' launches, and every launch is held against its plain twin as it
+   happens (decode bit for bit).  The decode kernel runs once more on
+   synthetic chunks of every encoding and bit width (bit for bit), is timed
+   per launch (device time: launches queued behind a sleep) and per pass
+   beside its bound, the H2D rate and the overlap of uploads with compute
+   come from the copy stream and a profiled pass, and warm walls and peak
+   device memory are printed streamed against resident;
+10. print the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Phases 7 and 8 price merges against the card's device memory: the kernels
 read dictionaries from device memory, and the planner's default budget is
@@ -51,15 +69,18 @@ the reference's TPU VMEM.
 
 It imports nothing of JAX and nothing of the reference package.
 """
+import bisect
 import contextlib
 import dataclasses
 import gc
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from collections import Counter
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -70,6 +91,11 @@ SCALE, SEED = 1.0, 7
 QUERIES = ("q1", "q3", "q5", "q9", "q18")
 TPCH_MERGE = {"lineitem": 5, "orders": 4, "supplier": 2}
 N_FACT, N_DIM, ML_SEED = 84_055_817, 1_159_457, 0  # Retailer: Inventory, Weather
+OOC_SCALE = 10.0  # TPC-H SF 10: 60,000,000 lineitem rows
+# the reference's documented CHUNK_ROWS is 1 << 16; at 916 chunks q3's and
+# q18's capacity-sized merges take over 500 s a pass each, so the first cut
+# of the phase raises the chunk to 1 << 20 rows (58 chunks)
+OOC_CHUNK_ROWS = 1 << 20
 
 
 def check(cond, msg):
@@ -153,6 +179,32 @@ def recording(targets):
             setattr(mod, name, real)
 
 
+@contextlib.contextmanager
+def checking(targets):
+    """Set each wrapper's launch count to 0, then hold every call of
+    ``module.name`` against its plain twin as it happens: ``check_fn(args,
+    out)`` raises on a disagreement, and ``errs[name]`` collects what it
+    returns.  Nothing of the call is kept unless the check keeps it."""
+    errs, saved = {}, []
+    for mod, name, check_fn in targets:
+        real = getattr(mod, name)
+        real.launches = 0
+        log = errs[name] = []
+
+        def rec(*args, _real=real, _log=log, _check=check_fn):
+            out = _real(*args)
+            _log.append(_check(args, out))
+            return out
+
+        setattr(mod, name, rec)
+        saved.append((mod, name, real))
+    try:
+        yield errs
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
 def check_fused(torch, fp, dbase, calls, what):
     """Every fused-pipeline launch against its plain twin; max |err|."""
     worst = 0.0
@@ -210,14 +262,13 @@ def profile_pass(torch, fn, top_n):
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, pass_s = wall(torch, fn)
-    busy_us, reach = 0.0, float("-inf")
-    for s, e in sorted((e.time_range.start, e.time_range.end) for e in prof.events() if on_device(e)):
-        busy_us += max(0.0, e - max(s, reach))
-        reach = max(reach, e)
+    events = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events() if on_device(e)]
+    busy = union(events)
+    busy_us = sum(e - s for s, e in busy)
     check(busy_us > 0, "the profiler saw no device time")
     ops = sorted((e for e in prof.key_averages() if on_device(e)), key=lambda e: -e.self_device_time_total)
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
-    return {
+    out = {
         "pass_ms": pass_s * 1e3, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e6 / pass_s,
         "top_device": [{"op": e.key[:60], "device_ms": e.self_device_time_total / 1e3, "calls": e.count}
@@ -225,6 +276,52 @@ def profile_pass(torch, fn, top_n):
         "top_host": [{"op": e.key[:60], "host_ms": e.self_cpu_time_total / 1e3, "calls": e.count}
                      for e in host[:top_n]],
     }
+    kernels = union([ev for ev in events if "Memcpy" not in ev[2] and "Memset" not in ev[2]])
+    starts = [s for s, _ in kernels]
+    # how much of the host-to-device copy time ran beside a kernel: copies
+    # from pinned memory (the chunk uploads) and from pageable memory apart
+    for kind, tag in (("pinned", "Pinned -> Device"), ("pageable", "Pageable -> Device")):
+        copies = [(s, e) for s, e, name in events if "HtoD" in name and tag in name]
+        if not copies:
+            continue
+        overlap = 0.0
+        for s, e in copies:
+            j = max(bisect.bisect_right(starts, s) - 1, 0)
+            while j < len(kernels) and kernels[j][0] < e:
+                overlap += max(0.0, min(e, kernels[j][1]) - max(s, kernels[j][0]))
+                j += 1
+        total = sum(e - s for s, e in copies)
+        out[f"h2d_{kind}"] = {"copies": len(copies), "copy_ms": total / 1e3, "overlap_share": overlap / total}
+    return out
+
+
+def device_ms(torch, fn, reps):
+    """Mean device milliseconds of one call of ``fn``, for a kernel that runs
+    for less time than its launch takes on the host: the stream first
+    sleeps (about 1 ms a call) while the host enqueues every call, so the
+    CUDA events around the calls time the device's back-to-back launches,
+    not the host's launch rate."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000 * reps)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def union(intervals):
+    """The union of ``(start, end, ...)`` intervals as sorted disjoint pairs."""
+    merged = []
+    for s, e, *_ in sorted(intervals):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    return merged
 
 
 def merge_row(torch, ml, real_ml, keys, vals, qs, reps):
@@ -261,6 +358,36 @@ def snowflake(n_fact, n_dim, seed):
     return {"s": s, "i": i, "u": u.astype(np.float32)}, {"s": np.arange(n_dim, dtype=np.int32), "c": c}
 
 
+def synthetic_columns(rng, n):
+    """Columns of ``n`` rows that force each encoding and bit width:
+    ``(kind, array)``."""
+    cols = []
+    for b in (1, 2, 4, 8, 16):
+        a = rng.integers(0, 1 << b, n).astype(np.int32)
+        a[0] = (1 << b) - 1  # the column needs all b bits
+        cols.append(("bitpack", a))
+    cols.append(("for", (rng.integers(0, 60000, n) - 123456).astype(np.int32)))
+    cols.append(("dict", rng.choice(np.array([-9, 4, 77, 1 << 28], np.int32), n)))
+    cols.append(("dict", rng.choice(rng.standard_normal(300).astype(np.float32), n)))
+    cols.append(("rle", np.repeat(rng.integers(-5, 5, n // 7 + 1), 7)[:n].astype(np.int32)))
+    cols.append(("rle", np.repeat(rng.standard_normal(n // 300 + 1).astype(np.float32), 300)[:n]))
+    return cols
+
+
+def reference_job(src, scale, seed, q):
+    """One query's numpy reference over TPC-H generated on the host from the
+    same seed, as ``(keys, value rows, seconds)`` (run in a worker process: the
+    references are Python loops over rows)."""
+    sys.path.insert(0, src)
+    from repro_torch.data import tpch
+    from repro_torch.exec.queries import REGISTRY
+
+    t0 = time.perf_counter()
+    out = REGISTRY[q].reference(tpch.generate(scale=scale, seed=seed, device="cpu").tables(), **REGISTRY[q].defaults)
+    keys = np.fromiter(out, dtype=np.int64, count=len(out))
+    return keys, np.array([np.ravel(out[k]) for k in keys.tolist()], dtype=np.float32), time.perf_counter() - t0
+
+
 def main() -> int:
     import torch
 
@@ -274,12 +401,14 @@ def main() -> int:
     from repro_torch.core.cost import AnalyticCostModel, FusionCostModel
     from repro_torch.core.lower import compile as compile_plan
     from repro_torch.core.synthesis import synthesize
+    from repro_torch.data import storage as STG
     from repro_torch.data import tpch
     from repro_torch.data.table import collect_stats, from_numpy
     from repro_torch.dicts import base as dbase
     from repro_torch.exec import engine as E
     from repro_torch.exec.queries import REGISTRY
     from repro_torch.kernels import build
+    from repro_torch.kernels import decode as DK
     from repro_torch.kernels import fused_pipeline as fp
     from repro_torch.kernels import merge_lookup as ml
     from repro_torch.kernels import segment_reduce as sr
@@ -292,21 +421,21 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     print(f"card: {smi}")
-    print(f"torch: {torch.__version__} cuda {torch.version.cuda} device {kind}")
+    print(f"torch: {torch.__version__} cuda {torch.version.cuda} device {device_kind}")
     dev = torch.device("cuda:0")
     # the merge budget on the card: dictionaries live in device memory
     card_fusion = dataclasses.replace(FusionCostModel(), vmem_budget=torch.cuda.get_device_properties(0).total_memory)
-    real_fp, real_ml, real_sr = fp.fused_pipeline, ml.merge_lookup, sr.segment_reduce
+    real_fp, real_ml, real_sr, real_dk = fp.fused_pipeline, ml.merge_lookup, sr.segment_reduce, DK.decode
     kernels_of_path = [(fp, "fused_pipeline"), (ml, "merge_lookup"), (sr, "segment_reduce")]
 
     # -- 2. build the static kernels, one nvcc each, started together ----------
     stamp("2. build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         for lib in pool.map(lambda name: build.load(name, (build.CSRC / f"{name}.cu").read_text()),
-                            ("merge_lookup", "segment_reduce")):
+                            ("merge_lookup", "segment_reduce", "decode")):
             check(lib is not None, "a static kernel did not load")
     print(f"static kernels built in {time.perf_counter() - t0:.1f}s")
 
@@ -495,9 +624,13 @@ def main() -> int:
     stamp("8. in-DB ML: kernel times")
     cov_fused = []
     for args, _ in calls["fused_pipeline"][:batch_fused]:
-        cov_fused.append({"term": args[0].term[0], "out": list(args[0].out[:2]),
-                          "ms": timed(torch, lambda: real_fp(*args), 3)})
-    print(json.dumps({"covariance_batch_fused_ms": cov_fused}))
+        nbytes, nops = fp.roofline(*args)
+        cov_fused.append({"term": args[0].term[0], "out": list(args[0].out[:2]), "rows": int(args[2].shape[0]),
+                          "ms": timed(torch, lambda: real_fp(*args), 3), "bytes": nbytes, "ops": nops,
+                          "bound_ms": bound_ms(nbytes, nops)})
+        print(f"covariance fused {cov_fused[-1]['term']} {cov_fused[-1]['out']}: kernel {cov_fused[-1]['ms']:.3f} ms, "
+              f"bound {cov_fused[-1]['bound_ms']:.4f} ms")
+    print(json.dumps({"covariance_batch_fused": cov_fused}))
     (mkeys, mvals, mqs), _ = calls["merge_lookup"][-1]
     ml_rows.append(merge_row(torch, ml, real_ml, mkeys, mvals, mqs, 10))
     (skeys, svals), _ = calls["segment_reduce"][0]
@@ -538,8 +671,252 @@ def main() -> int:
     for name, fn in paths.items():
         print(json.dumps({"profile_" + name: profile_pass(torch, fn, 6)}))
 
-    # -- 9. the kernels' line ---------------------------------------------------
-    total = {name: sum(path[name] for path in launches.values()) for _, name in kernels_of_path}
+    del S, R, ml_db, ex, paths, results, sp, plans
+    E.clear_exec_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 9. out-of-core TPC-H at SF 10 ----------------------------------------
+    stamp("9. out-of-core TPC-H: data")
+    t0 = time.perf_counter()
+    db = tpch.generate(scale=OOC_SCALE, seed=SEED, device=dev).tables()
+    torch.cuda.synchronize()
+    check(db["lineitem"].nrows == 60_000_000, "SF 10 has 60,000,000 lineitem rows")
+    sigma10 = collect_stats(db)
+    budget = int(sum(4 * st.rows * len(st.columns) for rel, st in sigma10.rels.items() if rel != "lineitem"))
+    print(f"data: TPC-H SF {OOC_SCALE} seed {SEED}: {db['lineitem'].nrows} lineitem rows on {dev} "
+          f"({time.perf_counter() - t0:.1f}s); budget {budget} B (every relation but lineitem, decoded)")
+
+    # the numpy references run in worker processes meanwhile; the timed
+    # passes below start after they have finished
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    t_ref = time.perf_counter()
+    with ProcessPoolExecutor(len(QUERIES), mp_context=multiprocessing.get_context("spawn")) as pool:
+        ref_jobs = {q: pool.submit(reference_job, src, OOC_SCALE, SEED, q) for q in QUERIES}
+
+        stamp("9. chunking lineitem")
+        t0 = time.perf_counter()
+        oo = repro_torch.connect(db, device=dev, memory_budget=budget, chunk_rows=OOC_CHUNK_ROWS)
+        chunk_s = time.perf_counter() - t0
+        ct = oo.db["lineitem"]
+        check(oo.streamed == ("lineitem",), f"the storage plan streams {oo.streamed}, not lineitem alone")
+        check(ct.n_chunks == -(-60_000_000 // OOC_CHUNK_ROWS), f"{ct.n_chunks} chunks")
+        encodings = {c: dict(sorted(Counter(kinds).items())) for c, kinds in ct.encodings().items()}
+        print(f"lineitem: {ct.n_chunks} chunks of {ct.chunk_rows} rows, encoded {ct.encoded_nbytes} B, decoded "
+              f"{ct.decoded_nbytes} B ({ct.decoded_nbytes / ct.encoded_nbytes:.2f}x), pinned on the host; "
+              f"chunked in {chunk_s:.1f}s")
+        print(json.dumps({"lineitem_encodings": encodings}))
+
+        stamp("9. resident session at SF 10, cold")
+        resident = repro_torch.connect(db, device=dev)
+        res_cold = {q: resident.query(q) for q in QUERIES}
+
+        stamp("9. streamed cold")
+        li_regions, ooc_cold = {}, {}
+        for q in QUERIES:
+            ooc_cold[q], cold = wall(torch, lambda: oo.query(q))
+            rep = oo.report()
+            same_items(ooc_cold[q], res_cold[q], f"{q} SF 10 streamed vs resident")
+            li_regions[q] = [n.out for n in oo.shape(q).plan.nodes if isinstance(n, P.Pipeline)
+                             and isinstance(n.stages[0], P.Scan) and n.stages[0].source == "lineitem"]
+            check(li_regions[q] and all(rep.mode(s).startswith("streamed") for s in li_regions[q]),
+                  f"{q}: lineitem regions {li_regions[q]} did not stream: {rep.modes()}")
+            print(f"streamed cold {q}: {cold:.2f}s; modes {rep.modes()}; chunks {rep.chunks}, h2d {rep.h2d_bytes} B, "
+                  f"peak chunk {rep.peak_chunk_bytes} B, peak state {rep.peak_state_bytes} B")
+
+        stamp("9. numpy references")
+        refs10, ref_s = {}, {}
+        for q in QUERIES:
+            keys, vals, ref_s[q] = ref_jobs[q].result()
+            refs10[q] = dict(zip(keys.tolist(), vals))
+    print(f"numpy references at SF {OOC_SCALE}, one worker process each (data generated on the host): "
+          + ", ".join(f"{q} {ref_s[q]:.1f}s" for q in QUERIES)
+          + f"; collected {time.perf_counter() - t_ref:.1f}s after they started")
+    for q in QUERIES:
+        same_items(res_cold[q], refs10[q], f"{q} SF 10 resident vs numpy")
+        same_items(ooc_cold[q], refs10[q], f"{q} SF 10 streamed vs numpy")
+    del res_cold, ooc_cold
+
+    stamp("9. resident session at SF 10, warm")
+    res_out, res_warm, res_peak, res_before = {}, {}, {}, {}
+    for q in QUERIES:
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        res_before[q] = torch.cuda.memory_allocated()
+        res_out[q], res_warm[q] = wall(torch, lambda: resident.query(q))
+        res_peak[q] = torch.cuda.max_memory_allocated()
+        same_items(res_out[q], refs10[q], f"{q} SF 10 resident (warm)")
+        print(f"resident SF 10 {q}: warm {res_warm[q] * 1e3:.1f} ms, peak {res_peak[q] / 2**30:.2f} GiB "
+              f"({res_before[q] / 2**30:.2f} GiB allocated before the call), modes {resident.report().modes()}")
+    del resident, db
+    E.clear_exec_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    stamp("9. streamed warm, counts from zero")
+    decoded_pairs = [0]
+    real_chunk_device = STG.ChunkedTable.chunk_device
+
+    def counting_chunk_device(self, i, cols=None, pad=False, uploaded=None):
+        names = tuple(cols) if cols is not None else tuple(self.chunks[i])
+        decoded_pairs[0] += sum(self.chunks[i][c].kind != "plain" for c in names)
+        return real_chunk_device(self, i, cols, pad, uploaded)
+
+    dec_groups, fused_rows, ooc_modes = {}, {}, {}
+
+    def check_decode(args, out):
+        code, payload, rows = args
+        check(torch.equal(out.view(torch.int32), DK.decode_plain(code, payload, rows).view(torch.int32)),
+              f"decode {code.kind}/{code.bits} differs from its plain twin")
+        g = dec_groups.setdefault((code.kind, code.bits, code.dtype), {"count": 0, "bytes": 0, "args": args})
+        g["count"] += 1
+        g["bytes"] += sum(t.numel() * t.element_size() for t in payload.values()) + 4 * rows
+        return 0.0
+
+    def check_fused_now(args, out):
+        err = check_fused(torch, fp, dbase, [(args, out)], "SF 10 streamed")
+        fused_rows.setdefault((args[0].term[0], int(args[2].shape[0]), args[0].out[:4]), args)
+        return err
+
+    def check_merge_now(args, out):
+        check_merge(torch, ml, [(args, out)], "SF 10 streamed")
+        return 0.0
+
+    sr.segment_reduce.launches = 0  # not on this path: its count must stay 0
+    STG.ChunkedTable.chunk_device = counting_chunk_device
+    try:
+        with checking([(DK, "decode", check_decode), (fp, "fused_pipeline", check_fused_now),
+                       (ml, "merge_lookup", check_merge_now)]) as errs:
+            for q in QUERIES:
+                got = oo.query(q)
+                ooc_modes[q] = oo.report().modes()
+                same_items(got, refs10[q], f"{q} SF 10 streamed (warm)")
+    finally:
+        STG.ChunkedTable.chunk_device = real_chunk_device
+    launches["ooc"] = {name: getattr(mod, name).launches for mod, name in kernels_of_path}
+    launches["ooc"]["decode"] = DK.decode.launches
+    kernel_chunks = sum(int(m.split(":")[1]) for modes_q in ooc_modes.values() for m in modes_q.values()
+                        if m.startswith("streamed-kernel:"))
+    resident_regions = sum(m == "kernel-resident" for modes_q in ooc_modes.values() for m in modes_q.values())
+    print(f"launches on the out-of-core path: {launches['ooc']}; (chunk, non-plain column) pairs decoded "
+          f"{decoded_pairs[0]}; streamed-kernel chunks {kernel_chunks} + resident fused regions {resident_regions}")
+    check(launches["ooc"]["decode"] == decoded_pairs[0] > 0,
+          f"{launches['ooc']['decode']} decode launches for {decoded_pairs[0]} decoded (chunk, column) pairs")
+    check(launches["ooc"]["fused_pipeline"] == kernel_chunks + resident_regions,
+          f"{launches['ooc']['fused_pipeline']} fused launches for {kernel_chunks} streamed-kernel chunks "
+          f"and {resident_regions} resident regions")
+    check(kernel_chunks > 0, "no region streamed through the fused pipeline")
+    fp_err = max([fp_err] + errs["fused_pipeline"])
+    print(f"every decode launch equals its plain twin bit for bit ({len(errs['decode'])} launches); "
+          f"fused launches within the tolerance (max |kernel-plain| {max(errs['fused_pipeline'] + [0.0]):.4g})")
+    del errs
+
+    stamp("9. streamed warm, timed")
+    ooc_warm, ooc_peak, ooc_before = {}, {}, {}
+    for q in QUERIES:
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        ooc_before[q] = torch.cuda.memory_allocated()
+        got, ooc_warm[q] = wall(torch, lambda: oo.query(q))
+        ooc_peak[q] = torch.cuda.max_memory_allocated()
+        same_items(got, res_out[q], f"{q} SF 10 streamed vs resident (timed)")
+        rep = oo.report()
+        print(f"warm {q} SF 10: streamed {ooc_warm[q] * 1e3:.1f} ms ({ooc_warm[q] * 1e3 / max(rep.chunks, 1):.3f} ms "
+              f"a chunk over {rep.chunks}) vs resident {res_warm[q] * 1e3:.1f} ms; peak device memory streamed "
+              f"{ooc_peak[q] / 2**30:.2f} GiB ({ooc_before[q] / 2**30:.2f} GiB allocated before the call) vs "
+              f"resident {res_peak[q] / 2**30:.2f} GiB ({res_before[q] / 2**30:.2f} GiB before)")
+    ooc_profile = profile_pass(torch, lambda: [oo.query(q) for q in QUERIES], 14)
+    print(json.dumps({"profile_ooc": ooc_profile}))
+
+    # the per-chunk fold of each streamed-kernel region: one merge of a
+    # chunk's partial into a half-full state at the region's capacity
+    merge_rows = []
+    for q in QUERIES:
+        for node in oo.shape(q).plan.nodes:
+            if not (isinstance(node, P.Pipeline) and ooc_modes[q].get(node.out, "").startswith("streamed-kernel:")):
+                continue
+            term, var = node.stages[-1], node.stages[0].var
+            ds = term.choice.ds
+            cap = E._stream_capacity(E.Frame({var: ct}, (var,), {var: "lineitem"}), term.keyexpr, ds, oo.sigma, ct.nrows)
+            V = len(term.values) if isinstance(term, P.GroupBy) else 1
+            live = torch.arange(cap // 2, dtype=torch.int32, device=dev) * 7 + 3
+            vals = torch.ones((live.shape[0], V), device=dev)
+            state = E.build_dict(ds, live, vals, cap).table
+            partial = E.build_dict(ds, live[:OOC_CHUNK_ROWS], vals[:OOC_CHUNK_ROWS], cap).table
+            ms = timed(torch, lambda: E._merge_dict_tables(ds, state, partial, cap), 3)
+            merge_rows.append({"query": q, "region": node.out, "family": ds, "capacity": cap, "V": V, "ms": ms,
+                               "chunks": ct.n_chunks, "pass_ms": ms * ct.n_chunks})
+            print(f"{q} {node.out} [{ds}] per-chunk merge at capacity {cap}: {ms:.2f} ms, x {ct.n_chunks} chunks "
+                  f"= {ms * ct.n_chunks / 1e3:.2f} s a pass")
+            del state, partial, live, vals
+    torch.cuda.empty_cache()
+
+    stamp("9. H2D rate, decode kernel")
+    copy = STG.copy_stream(dev)
+    ups, t_up = [], [torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)]
+    torch.cuda.synchronize()
+    t_up[0].record(copy)
+    h2d_total = 0
+    for i in range(ct.n_chunks):
+        up, nbytes = ct.upload_chunk(i)
+        ups.append(up)
+        h2d_total += nbytes
+    t_up[1].record(copy)
+    torch.cuda.synchronize()
+    h2d_gbs = h2d_total / (t_up[0].elapsed_time(t_up[1]) / 1e3) / 1e9
+    print(f"H2D: every chunk's encoded columns ({h2d_total} B) in {t_up[0].elapsed_time(t_up[1]):.1f} ms on the "
+          f"copy stream: {h2d_gbs:.1f} GB/s")
+    del ups
+
+    dec_rows = []
+    for (enc_kind, bits, dtype), g in sorted(dec_groups.items()):
+        code, payload, rows = g["args"]
+        nbytes = sum(t.numel() * t.element_size() for t in payload.values()) + 4 * rows
+        ms = device_ms(torch, lambda: real_dk(code, payload, rows), 50)
+        launch_ms = timed(torch, lambda: real_dk(code, payload, rows), 50)
+        plain_ms = timed(torch, lambda: DK.decode_plain(code, payload, rows), 10)
+        dec_rows.append({"kind": enc_kind, "bits": bits, "dtype": dtype, "rows": rows, "launches": g["count"],
+                         "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms, "bytes": nbytes,
+                         "bound_ms": bound_ms(nbytes, 0), "pass_ms": ms * g["count"],
+                         "pass_plain_ms": plain_ms * g["count"], "pass_bytes": g["bytes"]})
+        print(f"decode {enc_kind} bits={bits} {dtype} ({g['count']} launches a warm pass): {ms * 1e3:.2f} us a chunk "
+              f"on the device ({launch_ms * 1e3:.2f} us a call back to back), bound {bound_ms(nbytes, 0) * 1e3:.2f} us, "
+              f"plain {plain_ms * 1e3:.2f} us")
+    dec_pass_ms = sum(r["pass_ms"] for r in dec_rows)
+    dec_pass_bound = bound_ms(sum(r["pass_bytes"] for r in dec_rows), 0)
+    print(f"decode per warm pass of the five queries: {dec_pass_ms:.2f} ms over {len(dec_rows)} "
+          f"signatures, bound {dec_pass_bound:.3f} ms, plain {sum(r['pass_plain_ms'] for r in dec_rows):.2f} ms")
+
+    # every encoding and bit width once more, at the chunk's shape, bit for bit
+    rng = np.random.default_rng(SEED)
+    synth = 0
+    for enc_kind, a in synthetic_columns(rng, OOC_CHUNK_ROWS - 17):
+        enc = STG.encode_column(a, mode=enc_kind)
+        payload = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in enc.payload.items()}
+        code = DK.column_code(enc)
+        got = real_dk(code, payload, OOC_CHUNK_ROWS)
+        want = DK.decode_plain(code, payload, OOC_CHUNK_ROWS)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32))
+              and np.array_equal(got[: len(a)].cpu().numpy(), a), f"synthetic {enc_kind} column: decode differs")
+        synth += 1
+    print(f"decode kernel bit for bit against its twin on {synth} synthetic chunks (bitpack 1/2/4/8/16, FOR, "
+          f"dict int32/float32, RLE int32/float32)")
+
+    for key, args in fused_rows.items():
+        if key[1] != OOC_CHUNK_ROWS:  # the resident regions' shapes are not streamed chunks
+            continue
+        nbytes, nops = fp.roofline(*args)
+        ms = timed(torch, lambda: real_fp(*args), 10)
+        plain_ms = timed(torch, lambda: fp.fused_pipeline_plain(*args), 3)
+        regions.append({"term": key[0], "rows": key[1], "out": list(key[2]), "ms": ms, "plain_ms": plain_ms,
+                        "bytes": nbytes, "ops": nops, "bound_ms": bound_ms(nbytes, nops), "streamed_chunk": True})
+        print(f"streamed fused chunk {key[0]} {list(key[2])}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {regions[-1]['bound_ms']:.4f} ms")
+    del fused_rows, dec_groups
+
+    # -- 10. the kernels' line --------------------------------------------------
+    total = {name: sum(path.get(name, 0) for path in launches.values())
+             for name in [name for _, name in kernels_of_path] + ["decode"]}
 
     def entry(name, source, replaces, rows, err, library_ms):
         nbytes = sum(r["bytes"] for r in rows)
@@ -561,15 +938,28 @@ def main() -> int:
               sum(r["library_ms"] for r in ml_rows)),
         entry("segment_reduce", "src/repro_torch/kernels/csrc/segment_reduce.cu",
               "src/repro/kernels/segment_reduce.py:83", [sr_row], sr_err, sr_lib_ms),
+        # one warm pass of the five queries at SF 10: every launch's time from its signature's timing
+        entry("decode", "src/repro_torch/kernels/csrc/decode.cu", "src/repro/kernels/decode.py:238",
+              [{"ms": dec_pass_ms, "plain_ms": sum(r["pass_plain_ms"] for r in dec_rows),
+                "bytes": sum(r["pass_bytes"] for r in dec_rows), "ops": 0}], 0.0, None),
     ]
     print(json.dumps({"regions": regions, "merge_lookups": ml_rows, "segment_reduce": sr_row,
                       "warm_query_ms": {q: walls[q] * 1e3 for q in QUERIES},
                       "tpch_batch_warm_ms": batch_warm * 1e3,
                       "indb_ml_warm_ms": {k: v * 1e3 for k, v in warm.items()},
-                      "indb_ml_peak_bytes": peak, "launches_by_path": launches}))
+                      "indb_ml_peak_bytes": peak, "launches_by_path": launches,
+                      "covariance_batch_fused": cov_fused, "ooc_decode": dec_rows,
+                      "ooc_warm_ms": {q: ooc_warm[q] * 1e3 for q in QUERIES},
+                      "ooc_resident_warm_ms": {q: res_warm[q] * 1e3 for q in QUERIES},
+                      "ooc_peak_bytes": ooc_peak, "ooc_before_bytes": ooc_before,
+                      "ooc_resident_peak_bytes": res_peak, "ooc_resident_before_bytes": res_before, "ooc_merges": merge_rows,
+                      "ooc_h2d_gbs": h2d_gbs, "ooc_chunk_rows": OOC_CHUNK_ROWS, "ooc_chunking_s": chunk_s,
+                      "ooc_idle_share": ooc_profile["device_idle_share"],
+                      "ooc_h2d_pinned": ooc_profile.get("h2d_pinned"),
+                      "ooc_h2d_pageable": ooc_profile.get("h2d_pageable")}))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                               "count": torch.cuda.device_count()}}))
     return 0
 

@@ -136,21 +136,21 @@ def pack_keys(table: Table, cols: Sequence[str], domains: Optional[Dict[str, int
 
 
 def table_stats(t: Table) -> RelStats:
+    """Σ of one table, computed on the table's own device (a distinct count
+    of a fact column is one ``torch.unique`` on the card)."""
     cols = {}
-    mask = None if t.mask is None else to_numpy(t.mask)
-    for name, arr in t.columns.items():
-        a = to_numpy(arr)
-        if mask is not None:
-            a = a[mask]
-        if len(a) == 0:
+    for name, a in t.columns.items():
+        if t.mask is not None:
+            a = a[t.mask]
+        if a.numel() == 0:
             cols[name] = ColumnStats(distinct=0, lo=0.0, hi=0.0)
             continue
         cols[name] = ColumnStats(
-            distinct=float(len(np.unique(a))),
+            distinct=float(torch.unique(a).numel()),
             lo=float(a.min()),
             hi=float(a.max()),
         )
-    rows = float(t.nrows if mask is None else int(mask.sum()))
+    rows = float(t.nrows if t.mask is None else int(t.mask.sum()))
     return RelStats(rows=rows, columns=cols, sorted_on=t.sorted_on)
 
 

@@ -19,12 +19,21 @@ every plan of a ``plan.SharedPlan`` with each merged region executed once
 for all its branches.  The in-DB ML operators (``sort_groupby_arrays``,
 ``covar_factorized``, ``covar_naive``) aggregate sorted runs through the
 segment-reduce kernel.
+
+Out of core (``data.storage``): a region that scans a chunked relation
+streams it — chunk i+1's encoded upload starts before chunk i is computed,
+each chunk decodes on the device through the decode kernel, and an
+aggregating terminal folds every chunk into an accumulator sized for the
+whole relation (one fused-pipeline launch per chunk where the region is
+kernel-eligible, ``streamed-kernel:N``; else the region's stages per chunk,
+``streamed:N``).  Project terminals defer into ``_PendingStream`` chains
+that downstream regions extend or spill to host memory.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +43,7 @@ from repro_torch.core import llql as L
 from repro_torch.core import plan as P
 from repro_torch.core.cardinality import key_columns
 from repro_torch.core.lower import _BIN, _UN, DICT_KEY, DICT_VAL, _Unsupported, as_column, compile_rowfn_frame
+from repro_torch.data import storage as STG
 from repro_torch.data.table import Table, to_numpy
 from repro_torch.dicts import base as dbase
 from repro_torch.dicts import registry
@@ -281,6 +291,8 @@ def execute_plan(plan, db: Dict[str, Table], sigma=None, allow_sorted: bool = Tr
                 rec = rep.regions.get(node.out)
                 if rec is not None and rec.wall_s == 0.0:
                     rec.wall_s = time.perf_counter() - t_node
+        if plan.result is not None and isinstance(env.get(plan.result), _PendingStream):
+            env[plan.result].force(env, refs, sigma, allow_sorted, params)
         return _plan_result(plan, env, refs)
     finally:
         _end_report(rep, time.perf_counter() - t_plan)
@@ -308,6 +320,12 @@ def _exec_node(node, env, refs, db, sigma, allow_sorted, params):
         v = env[sym]
         if not isinstance(v, Frame):
             raise TypeError(f"{sym} is not a row frame")
+        p0 = v.tables[v.order[0]]
+        if isinstance(p0, _PendingStream):  # bare-node consumer: spill
+            p0 = p0.force(env, refs, sigma, allow_sorted, params)
+        if _is_chunked(p0):  # bare-node fallback: materialize the relation
+            v = Frame({**v.tables, v.order[0]: p0.decode()}, v.order, v.rels)
+            env[sym] = v
         return v
 
     if isinstance(node, P.Scan):
@@ -315,7 +333,7 @@ def _exec_node(node, env, refs, db, sigma, allow_sorted, params):
             src = env[node.source]
             if isinstance(src, BuiltDict):
                 t, rel = _dict_scan_table(src), None
-            elif isinstance(src, Table):
+            elif isinstance(src, (Table, _PendingStream)) or _is_chunked(src):
                 t, rel = src, None
             else:
                 raise TypeError(f"cannot scan {node.source}")
@@ -354,6 +372,16 @@ def _exec_node(node, env, refs, db, sigma, allow_sorted, params):
         env[node.out] = _probe(node, f, b, src_cols, rowfn, allow_sorted)
 
     elif isinstance(node, P.GroupBy):
+        fv = env[node.source]
+        if isinstance(fv, Frame) and _is_chunked(fv.tables[fv.order[0]]):
+            # bare group-by over a chunked relation: a one-stage streamed
+            # region (the same fold machinery as fused pipelines)
+            v0 = fv.order[0]
+            _run_streamed_pipeline(
+                node, [node], fv.tables[v0], v0, fv.rels.get(v0), env, refs, db,
+                sigma, allow_sorted, params, P.needed_columns((node,)),
+            )
+            return
         f = frame_of(node.source)
         env[node.out] = BuiltDict(
             DictResult(node.choice.ds, _groupby_table(node, f, rowfn, sigma, allow_sorted)),
@@ -459,6 +487,38 @@ def _groupjoin_table(node, f: Frame, b: BuiltDict, rowfn, sigma, allow_sorted):
     ).table
 
 
+def _groupby_fold(node, f: Frame, rowfn, allow_sorted, stream):
+    """One streamed fold step of a GroupBy terminal (``stream=(state,
+    capacity, final)``): the chunk's rows merge into the carried state."""
+    n, dev = f.primary.nrows, f.primary.device
+    keys = as_column(rowfn(node.keyexpr, f.tables), torch.int32, n, dev)
+    _, _, srt = _key_info(f, node.keyexpr)
+    srt = srt and allow_sorted
+    vals = torch.stack([as_column(rowfn(fx, f.tables), torch.float32, n, dev) for _, fx in node.values], dim=1)
+    state, cap, final = stream
+    ds, ops = node.choice.ds, tuple(node.ops)
+    if isinstance(state, _SortedStreamState):
+        return _sorted_stream_merge(f.primary, keys, vals, ds, cap, state, ops=ops, final=final)
+    return _merge_groupby(f.primary, keys, vals, ds, cap, state, ops=ops, sorted_merge=srt and ds.startswith("st")).table
+
+
+def _groupjoin_fold(node, f: Frame, b: BuiltDict, rowfn, allow_sorted, stream):
+    """One streamed fold step of a GroupJoin terminal."""
+    n, dev = f.primary.nrows, f.primary.device
+    keys = as_column(rowfn(node.keyexpr, f.tables), torch.int32, n, dev)
+    _, _, srt = _key_info(f, node.keyexpr)
+    srt = srt and allow_sorted
+    f_vals = as_column(rowfn(node.f_expr, f.tables), torch.float32, n, dev)
+    g_vals, found = lookup_dict(
+        b.res, keys, valid=f.primary.mask, sorted_probes=srt and (node.hinted or b.choice.hinted),
+    )
+    state, cap, final = stream
+    ds, tbl = node.choice.ds, f.primary.with_mask(found)
+    if isinstance(state, _SortedStreamState):
+        return _sorted_stream_merge(tbl, keys, f_vals[:, None] * g_vals, ds, cap, state, final=final)
+    return _merge_groupby(tbl, keys, f_vals[:, None] * g_vals, ds, cap, state, sorted_merge=srt and ds.startswith("st")).table
+
+
 def _reduce(node, f: Frame, denv, rowfn, allow_sorted, params):
     lanes: Tuple[str, ...] = ("m", "c", "c_c")
     lookup_vals = None
@@ -508,24 +568,39 @@ def _reduce_field(fx, frame: Frame, lookup_var, lookup_vals, lane_names, params=
 @dataclass
 class RegionRecord:
     """Telemetry for ONE fused region, keyed by its terminal symbol.
-    ``mode``: "xla" / "xla-radix-planned" (plain PyTorch region path) or
-    "kernel-resident" (the fused-pipeline kernel); ``family`` is the
-    terminal dictionary's ds; ``wall_s`` host dispatch time."""
+    ``mode``: "xla" / "xla-radix-planned" (plain PyTorch region path),
+    "kernel-resident" (the fused-pipeline kernel), "shared:N", or a streamed
+    mode — "streamed:N" (N chunks through the region's stages),
+    "streamed-kernel:N" (one fused-pipeline launch per chunk),
+    "streamed-chained:N", "streamed-deferred"; ``family`` is the terminal
+    dictionary's ds; ``wall_s`` host time; ``chunks`` and ``h2d_bytes`` the
+    region's share of the streaming ledger."""
 
     sym: str
     mode: str = ""
     family: str = ""
     wall_s: float = 0.0
+    chunks: int = 0
+    h2d_bytes: int = 0
 
 
 @dataclass
 class ExecutionReport:
     """Per-execution telemetry attached to every ``execute_plan`` call:
     ``regions`` maps each fused region's terminal symbol to its
-    :class:`RegionRecord`; ``wall_s`` is the call's host wall time."""
+    :class:`RegionRecord`; ``wall_s`` is the call's host wall time; the
+    streaming ledger counts streamed regions, chunks, the encoded bytes
+    that crossed the host→device link, the largest decoded chunk working
+    set (two chunks in flight plus chained intermediates) and the largest
+    carried accumulator state, all computed from shapes."""
 
     regions: Dict[str, RegionRecord] = field(default_factory=dict)
     wall_s: float = 0.0
+    chunks: int = 0
+    h2d_bytes: int = 0
+    peak_chunk_bytes: int = 0
+    peak_state_bytes: int = 0
+    streamed_regions: int = 0
     trace_count: int = 0
 
     def modes(self) -> Dict[str, str]:
@@ -539,7 +614,10 @@ class ExecutionReport:
         return self.regions.get(sym)
 
     def summary(self) -> str:
-        lines = [f"wall={self.wall_s * 1e3:.2f}ms"]
+        parts = [f"wall={self.wall_s * 1e3:.2f}ms"]
+        if self.chunks:
+            parts.append(f"chunks={self.chunks} h2d={self.h2d_bytes >> 10}KiB")
+        lines = [" ".join(parts)]
         for s, r in self.regions.items():
             lines.append(f"  {s}: {r.mode}" + (f" [{r.family}]" if r.family else ""))
         return "\n".join(lines)
@@ -568,7 +646,7 @@ def _end_report(rep: ExecutionReport, wall_s: float) -> None:
     _LAST_REPORT = rep
 
 
-def _record_region(sym: str, mode: str, family: str = "") -> None:
+def _record_region(sym: str, mode: str, family: str = "", chunks: int = 0, h2d_bytes: int = 0, wall_s: float = 0.0) -> None:
     if _ACTIVE_REPORTS:
         rep = _ACTIVE_REPORTS[-1]
         rec = rep.regions.get(sym)
@@ -577,6 +655,38 @@ def _record_region(sym: str, mode: str, family: str = "") -> None:
         rec.mode = mode
         if family:
             rec.family = family
+        rec.chunks += chunks
+        rec.h2d_bytes += h2d_bytes
+        rec.wall_s += wall_s
+
+
+# Per-process streaming ledger, reset by ``reset_stream_stats``; the
+# structured ``ExecutionReport`` (``last_report()``) carries the same
+# counts per execution.
+STREAM_STATS: Dict[str, int] = {}
+
+
+def reset_stream_stats() -> None:
+    STREAM_STATS.update(regions=0, chunks=0, h2d_bytes=0, peak_chunk_bytes=0, peak_state_bytes=0)
+
+
+reset_stream_stats()
+
+
+def _account_stream(regions: int = 0, chunks: int = 0, h2d_bytes: int = 0, peak_chunk_bytes: int = 0, peak_state_bytes: int = 0) -> None:
+    """Update the streaming ledger on the active report and ``STREAM_STATS``."""
+    STREAM_STATS["regions"] += regions
+    STREAM_STATS["chunks"] += chunks
+    STREAM_STATS["h2d_bytes"] += h2d_bytes
+    STREAM_STATS["peak_chunk_bytes"] = max(STREAM_STATS["peak_chunk_bytes"], peak_chunk_bytes)
+    STREAM_STATS["peak_state_bytes"] = max(STREAM_STATS["peak_state_bytes"], peak_state_bytes)
+    if _ACTIVE_REPORTS:
+        rep = _ACTIVE_REPORTS[-1]
+        rep.streamed_regions += regions
+        rep.chunks += chunks
+        rep.h2d_bytes += h2d_bytes
+        rep.peak_chunk_bytes = max(rep.peak_chunk_bytes, peak_chunk_bytes)
+        rep.peak_state_bytes = max(rep.peak_state_bytes, peak_state_bytes)
 
 
 def _terminal_family(term) -> str:
@@ -588,26 +698,53 @@ def _terminal_family(term) -> str:
 # ---------------------------------------------------------------------------
 
 
-def _region_input(pipe, env, db) -> Tuple[Frame, tuple]:
-    """The frame a region streams over and the stages that run on it."""
+def _region_input(pipe, env, refs, db, sigma, allow_sorted, params, need):
+    """The frame a region runs over and the stages that run on it — or
+    ``None`` when the region's input is chunked storage or a pending
+    streamed chain, in which case the region has been handed to the
+    streamed driver (``_run_streamed_pipeline``) and is done or deferred."""
     stages = pipe.stages
-    if not isinstance(stages[0], P.Scan):
-        f = env[pipe.source]
-        if not isinstance(f, Frame):
-            raise TypeError(f"{pipe.source} is not a row frame")
-        return f, stages
-    sc = stages[0]
-    if sc.source in env:
-        src = env[sc.source]
-        if isinstance(src, BuiltDict):
-            t, rel = _dict_scan_table(src), None
-        elif isinstance(src, Table):
-            t, rel = src, None
+    if isinstance(stages[0], P.Scan):
+        sc = stages[0]
+        if sc.source in env:
+            src = env[sc.source]
+            if isinstance(src, BuiltDict):
+                t, rel = _dict_scan_table(src), None
+            elif isinstance(src, _PendingStream):
+                if not isinstance(stages[-1], P.HashBuild):
+                    # chain this pipeline's stages onto the pending loop
+                    _run_streamed_pipeline(pipe, stages[1:], src, sc.var, None, env, refs, db, sigma, allow_sorted, params, need)
+                    return None
+                # index terminals need the materialized rows: spill
+                t, rel = src.force(env, refs, sigma, allow_sorted, params), None
+            elif isinstance(src, Table) or _is_chunked(src):
+                t, rel = src, None
+            else:
+                raise TypeError(f"cannot scan {sc.source}")
         else:
-            raise TypeError(f"cannot scan {sc.source}")
-    else:
-        t, rel = db[sc.source], sc.source
-    return Frame({sc.var: t}, (sc.var,), {sc.var: rel}), stages[1:]
+            t, rel = db[sc.source], sc.source
+        if _is_chunked(t):
+            if not isinstance(stages[-1], P.HashBuild):
+                _run_streamed_pipeline(pipe, stages[1:], t, sc.var, rel, env, refs, db, sigma, allow_sorted, params, need)
+                return None
+            # index terminals need global row ids, and their source serves
+            # downstream gathers of columns this region never reads: decode
+            # the relation whole
+            t = t.decode(None)
+        return Frame({sc.var: t}, (sc.var,), {sc.var: rel}), stages[1:]
+    f = env[pipe.source]
+    if not isinstance(f, Frame):
+        raise TypeError(f"{pipe.source} is not a row frame")
+    p0 = f.tables[f.order[0]]
+    if isinstance(p0, _PendingStream):
+        p0 = p0.force(env, refs, sigma, allow_sorted, params)
+        f = Frame({**f.tables, f.order[0]: p0}, f.order, f.rels)
+    if _is_chunked(p0):
+        if len(f.order) == 1 and not isinstance(stages[-1], P.HashBuild):
+            _run_streamed_pipeline(pipe, stages, p0, f.order[0], f.rels.get(f.order[0]), env, refs, db, sigma, allow_sorted, params, need)
+            return None
+        f = Frame({**f.tables, f.order[0]: p0.decode()}, f.order, f.rels)
+    return f, stages
 
 
 def _pruned_src_cols(rest, env, need) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -625,9 +762,13 @@ def _run_pipeline(pipe, env, refs, db, sigma, allow_sorted, params):
     """Execute a fused ``Pipeline`` region as one streaming pass: the
     fused-pipeline kernel when the region is eligible, else the region's
     stages as plain PyTorch with pruned probe gathers (only build-side
-    columns later stages read are gathered)."""
+    columns later stages read are gathered).  A region over chunked storage
+    streams chunk by chunk instead (``_run_streamed_pipeline``)."""
     need = P.needed_columns(pipe.stages)
-    f, rest = _region_input(pipe, env, db)
+    got = _region_input(pipe, env, refs, db, sigma, allow_sorted, params, need)
+    if got is None:
+        return
+    f, rest = got
     _faults.check("fused-region", detail=pipe.out)
     if _kernel_pipeline(pipe, rest, f, env, refs, sigma, params, need):
         return
@@ -639,9 +780,14 @@ def _run_pipeline(pipe, env, refs, db, sigma, allow_sorted, params):
     _region_stages(rest, f, env, refs, _pruned_src_cols(rest, env, need), params, sigma, allow_sorted)
 
 
-def _region_stages(rest, f, env, refs, src_cols, params, sigma, allow_sorted):
+def _region_stages(rest, f, env, refs, src_cols, params, sigma, allow_sorted, stream=None):
     """Run a region's stage list over an input frame and store the
-    terminal's result under its symbol."""
+    terminal's result under its symbol.
+
+    ``stream=(state, capacity, final)`` turns a GroupBy/GroupJoin terminal
+    from a one-shot build into one streamed fold step: the chunk's rows
+    merge into the carried accumulator, and the stored dictionary's table is
+    the new state.  Every other stage is the resident math."""
     def rowfn(x, tables):
         return compile_rowfn_frame(x, tables, params)
 
@@ -667,16 +813,19 @@ def _region_stages(rest, f, env, refs, src_cols, params, sigma, allow_sorted):
             env[node.out] = BuiltDict(d, node.choice, kind="index", src=f.primary)
             return
         elif isinstance(node, P.GroupBy):
-            env[node.out] = BuiltDict(
-                DictResult(node.choice.ds, _groupby_table(node, f, rowfn, sigma, allow_sorted)),
-                node.choice, lanes=tuple(a for a, _ in node.values),
+            table = (
+                _groupby_table(node, f, rowfn, sigma, allow_sorted) if stream is None
+                else _groupby_fold(node, f, rowfn, allow_sorted, stream)
             )
+            env[node.out] = BuiltDict(DictResult(node.choice.ds, table), node.choice, lanes=tuple(a for a, _ in node.values))
             return
         elif isinstance(node, P.GroupJoin):
-            env[node.out] = BuiltDict(
-                DictResult(node.choice.ds, _groupjoin_table(node, f, env[node.build], rowfn, sigma, allow_sorted)),
-                node.choice, lanes=("_0",),
+            b = env[node.build]
+            table = (
+                _groupjoin_table(node, f, b, rowfn, sigma, allow_sorted) if stream is None
+                else _groupjoin_fold(node, f, b, rowfn, allow_sorted, stream)
             )
+            env[node.out] = BuiltDict(DictResult(node.choice.ds, table), node.choice, lanes=("_0",))
             return
         elif isinstance(node, P.Reduce):
             refs[node.out] = _reduce(node, f, env, rowfn, allow_sorted, params)
@@ -697,22 +846,76 @@ def _param_scalar(v, device) -> torch.Tensor:
     return torch.tensor(float(v), dtype=torch.float32, device=device)
 
 
+class _KernelRegion(NamedTuple):
+    """A region lowered for the fused-pipeline kernel: the program, the
+    frame columns it streams (``(var, column)`` in program order), the
+    resident dictionary bundles and parameter scalars, and the terminal."""
+
+    program: object
+    col_refs: Tuple[Tuple[str, str], ...]
+    dicts: list
+    pvals: list
+    term: object
+    acc_ds: Optional[str]
+    out_cap: Optional[int]
+
+
 def _kernel_pipeline(pipe, rest, f, env, refs, sigma, params, need) -> bool:
     """Run the region through the fused-pipeline kernel; returns True when
-    it ran and stored the terminal's result.
+    it ran and stored the terminal's result (see :func:`_kernel_region`)."""
+    kr = _kernel_region(rest, f, env, sigma, params, need)
+    if kr is None:
+        return False
+    res = _kernel_launch(kr, f)
+    term = kr.term
+    _record_region(term.out, "kernel-resident", family=_terminal_family(term))
+    if kr.acc_ds is not None:
+        lanes_out = tuple(a for a, _ in term.values) if isinstance(term, P.GroupBy) else ("_0",)
+        env[term.out] = BuiltDict(DictResult(kr.acc_ds, _kernel_table(kr, res)), term.choice, lanes=lanes_out)
+    else:
+        refs[term.out] = {name: res[i] for i, (name, _) in enumerate(term.fields)}
+    return True
+
+
+def _kernel_launch(kr: _KernelRegion, f: Frame):
+    """One fused-pipeline launch of a lowered region over frame ``f``."""
+    cols = [f.tables[v].col(c) for v, c in kr.col_refs]
+    return _fp.fused_pipeline(kr.program, cols, f.primary.live_mask(), kr.dicts, kr.pvals)
+
+
+def _kernel_table(kr: _KernelRegion, res):
+    """The terminal dictionary's backend table from a launch's accumulator."""
+    tk, tv = res
+    term_ops = tuple(getattr(kr.term, "ops", ()) or ())
+    if registry.accumulates_resident(kr.acc_ds):
+        # hash-family terminal: the accumulator IS the family's layout
+        # (min/max lanes: clear the identity residue off dead slots)
+        tv = dbase.finalize_dead(tk, tv, term_ops, dbase.EMPTY)
+        return dbase.HashTable(tk, tv, _fp.MAX_PROBES)
+    # sort-family terminal: finalize through the family's build — keys are
+    # unique per entry, so no sums move
+    kw = {} if dbase.all_sum(term_ops) else {"ops": term_ops}
+    return registry.get(kr.acc_ds).build(tk, tv, kr.out_cap, valid=tk != dbase.EMPTY, **kw)
+
+
+def _kernel_region(rest, f, env, sigma, params, need) -> Optional[_KernelRegion]:
+    """Lower a region for the fused-pipeline kernel, or ``None`` when it is
+    not eligible.
 
     Eligibility is structural only: an aggregating terminal, resident
     dictionary families with a CUDA find, and no probe symbol used twice.
     The kernel reads dictionaries from device memory, so there is no
     residency bound: radix-marked regions (``pipe.partitions``) run
     unpartitioned over the whole dictionary, and the terminal accumulates
-    into ``out_cap`` slots."""
+    into ``out_cap`` slots.  Only the frame's column names and dtypes, its
+    relations and its row count are read, so one lowering serves every
+    chunk of a stream."""
     term = rest[-1] if rest else None
     if not isinstance(term, (P.GroupBy, P.GroupJoin, P.Reduce)):
-        return False
+        return None
     probe_builds = [n.build for n in rest if isinstance(n, P.HashProbe)]
     if len(set(probe_builds)) != len(probe_builds):
-        return False
+        return None
 
     def _resident_ok(b) -> bool:
         return (
@@ -722,18 +925,16 @@ def _kernel_pipeline(pipe, rest, f, env, refs, sigma, params, need) -> bool:
         )
 
     dev = f.primary.device
-    n = f.primary.nrows
-    cols, col_types = [], []
+    col_refs, col_types = [], []
     scope: Dict[str, Dict[str, tuple]] = {}
     for var in f.order:
         t = f.tables[var]
         scope[var] = {}
         for c in t.names():
             if c in need.get(var, ()):
-                a = t.col(c)
-                ty = _fp.type_of(a.dtype)
-                scope[var][c] = ("col", ty, len(cols))
-                cols.append(a)
+                ty = _fp.type_of(t.col(c).dtype)
+                scope[var][c] = ("col", ty, len(col_refs))
+                col_refs.append((var, c))
                 col_types.append(ty)
     pnames = sorted(params or {})
     pvals = [_param_scalar(params[k], dev) for k in pnames]
@@ -761,7 +962,7 @@ def _kernel_pipeline(pipe, rest, f, env, refs, sigma, params, need) -> bool:
             elif isinstance(node, P.HashProbe):
                 b = env[node.build]
                 if not (_resident_ok(b) and b.kind == "index"):
-                    return False
+                    return None
                 src_t = b.src
                 want = tuple(c for c in src_t.names() if c in need.get(node.inner_var, ()))
                 ks, vs, slot_ok = b.res.arrays()
@@ -798,7 +999,7 @@ def _kernel_pipeline(pipe, rest, f, env, refs, sigma, params, need) -> bool:
             elif isinstance(node, P.GroupJoin):
                 b = env[node.build]
                 if not _resident_ok(b):
-                    return False
+                    return None
                 d = value_dict(b)
                 term_ir = (
                     "groupjoin", d, _fp.cast(lo(node.keyexpr), "i32"),
@@ -810,7 +1011,7 @@ def _kernel_pipeline(pipe, rest, f, env, refs, sigma, params, need) -> bool:
                 if node.lookup_sym is not None:
                     b = env[node.lookup_sym]
                     if not _resident_ok(b):
-                        return False
+                        return None
                     lanes = b.lanes or lanes
                     d = value_dict(b)
                     key = _fp.cast(lo(node.lookup_key), "i32")
@@ -825,42 +1026,413 @@ def _kernel_pipeline(pipe, rest, f, env, refs, sigma, params, need) -> bool:
     except _Unsupported:
         # a row expression the region program cannot hold: structurally
         # ineligible, so the region takes the plain-torch path on its device
-        return False
+        return None
 
     term_ops = tuple(getattr(term, "ops", ()) or ())
     acc_ds = out_cap = None
     if isinstance(term, (P.GroupBy, P.GroupJoin)):
         acc_ds = term.choice.ds
         if acc_ds not in registry.names():
-            return False
+            return None
         out_cap = _capacity(f, term.keyexpr, acc_ds, sigma)
         n_lanes = len(term.values) if isinstance(term, P.GroupBy) else specs[term_ir[1]].nf
         acc_family = acc_ds if registry.accumulates_resident(acc_ds) else "ht_linear"
         if acc_family not in _fp.ACC_KIND:
-            return False
+            return None
         out = ("dict", acc_family, out_cap, n_lanes, term_ops)
     else:
         out = ("sum", len(term.fields), term_ops)
 
     program = _fp.Program(tuple(col_types), tuple(v[1] for v in pnodes.values()), tuple(specs), tuple(stages), term_ir, out)
-    res = _fp.fused_pipeline(program, cols, f.primary.live_mask(), dicts, pvals)
-    _record_region(term.out, "kernel-resident", family=_terminal_family(term))
-    if out[0] == "dict":
-        tk, tv = res
-        if registry.accumulates_resident(acc_ds):
-            # hash-family terminal: the accumulator IS the family's layout
-            # (min/max lanes: clear the identity residue off dead slots)
-            tv = dbase.finalize_dead(tk, tv, term_ops, dbase.EMPTY)
-            table = dbase.HashTable(tk, tv, _fp.MAX_PROBES)
-        else:
-            # sort-family terminal: finalize through the family's build —
-            # keys are unique per entry, so no sums move
-            kw = {} if dbase.all_sum(term_ops) else {"ops": term_ops}
-            table = registry.get(acc_ds).build(tk, tv, out_cap, valid=tk != dbase.EMPTY, **kw)
-        lanes_out = tuple(a for a, _ in term.values) if isinstance(term, P.GroupBy) else ("_0",)
-        env[term.out] = BuiltDict(DictResult(acc_ds, table), term.choice, lanes=lanes_out)
+    return _KernelRegion(program, tuple(col_refs), dicts, pvals, term, acc_ds, out_cap)
+
+
+# ---------------------------------------------------------------------------
+# out-of-core streaming
+# ---------------------------------------------------------------------------
+
+
+def _is_chunked(x) -> bool:
+    return STG.is_chunked(x)
+
+
+def _tensor_bytes(x) -> int:
+    """Device bytes of the tensors of a backend table or stream state."""
+    return sum(t.numel() * t.element_size() for t in x if isinstance(t, torch.Tensor))
+
+
+def _stream_capacity(meta_frame, keyexpr, ds: str, sigma, total_rows: int) -> int:
+    """Dictionary capacity of a streamed terminal — what the resident path
+    would pick: the Σ distinct estimate when available, else the TOTAL row
+    count, never the per-chunk row count."""
+    rel, cols, _ = _key_info(meta_frame, keyexpr)
+    if sigma is not None and rel is not None and cols and "*" not in cols:
+        try:
+            return capacity_for(ds, int(sigma.dist(rel, cols)))
+        except KeyError:
+            pass
+    return capacity_for(ds, total_rows)
+
+
+def _merge_groupby(table, keys, vals, ds, capacity, state, ops=(), sorted_merge: bool = False) -> DictResult:
+    """One streamed group-by step: fold a chunk's rows into the carried
+    accumulator.  The state's live entries are re-presented as (key, value)
+    rows AHEAD of the chunk's rows and rebuilt, so each key's fold continues
+    in row order.  ``sorted_merge`` (a sort-family dictionary keyed by the
+    stream's sort key): every state key precedes every chunk key, so the
+    concatenation's live rows are already ordered and the build skips its
+    sort."""
+    if vals.dim() == 1:
+        vals = vals[:, None]
+    vals = _weight(table, vals, ops)
+    sk, sv = state.keys, state.vals
+    svalid = (sk != dbase.PAD) & (sk != dbase.EMPTY)
+    mk = torch.cat([torch.where(svalid, sk, dbase.PAD), keys.to(torch.int32)])
+    mv = torch.cat([sv, vals])
+    valid = torch.cat([svalid, table.live_mask()])
+    return build_dict(ds, mk, mv, capacity, valid=valid, assume_sorted=sorted_merge, ops=ops)
+
+
+class _SortedStreamState(NamedTuple):
+    """Carried accumulator of the sorted-stream path (a sort-family
+    group-by keyed by the stream's sort key): chunks are contiguous slices
+    of a key-sorted stream, so a group is complete once the stream moves
+    past its key.  Each chunk appends its completed groups to
+    ``out_k``/``out_v`` at row ``off`` (in place) and carries only the open
+    boundary group (``bk``/``bv``)."""
+
+    out_k: torch.Tensor  # [capacity + cap_chunk] emitted unique keys, PAD tail
+    out_v: torch.Tensor  # [capacity + cap_chunk, V]
+    off: int  # rows of out_k filled so far
+    bk: int  # open boundary group's key (PAD when none)
+    bv: torch.Tensor  # [V] boundary group's partial fold
+    bvalid: bool
+
+
+def _sorted_stream_chunk_cap(chunk_rows: int) -> int:
+    # distinct keys in a chunk + the seeded boundary row, padded to the
+    # st_blocked leaf multiple
+    return -(-(chunk_rows + 1) // 128) * 128
+
+
+def _sorted_stream_init(cap: int, chunk_rows: int, n_lanes: int, device) -> _SortedStreamState:
+    cc = _sorted_stream_chunk_cap(chunk_rows)
+    return _SortedStreamState(
+        torch.full((cap + cc,), dbase.PAD, dtype=torch.int32, device=device),
+        torch.zeros((cap + cc, n_lanes), dtype=torch.float32, device=device),
+        0, dbase.PAD, torch.zeros((n_lanes,), dtype=torch.float32, device=device), False,
+    )
+
+
+def _sorted_stream_merge(table, keys, vals, ds, capacity, state: _SortedStreamState, ops=(), final: bool = False):
+    """One sorted-stream fold step: group the chunk alone, seeded with the
+    carried boundary partial (first, so the group's fold continues in row
+    order), emit its completed groups, carry the new boundary.  On the
+    ``final`` chunk the boundary is emitted too and the unique rows are laid
+    out by one ordered build at the resident capacity."""
+    if vals.dim() == 1:
+        vals = vals[:, None]
+    vals = _weight(table, vals, ops)
+    dev = keys.device
+    cap_chunk = state.out_k.shape[0] - capacity
+    mk = torch.cat([torch.tensor([state.bk], dtype=torch.int32, device=dev), keys.to(torch.int32)])
+    mv = torch.cat([state.bv[None, :], vals])
+    valid = torch.cat([torch.tensor([state.bvalid], device=dev), table.live_mask()])
+    t = build_dict(ds, mk, mv, cap_chunk, valid=valid, assume_sorted=True, ops=ops).table
+    c = t.n if final else max(t.n - 1, 0)
+    keep = torch.arange(cap_chunk, device=dev) < c
+    state.out_k[state.off: state.off + cap_chunk] = torch.where(keep, t.keys, dbase.PAD)
+    state.out_v[state.off: state.off + cap_chunk] = torch.where(keep[:, None], t.vals, _zero(t.vals))
+    if final:
+        fk = state.out_k[:capacity]
+        return build_dict(ds, fk, state.out_v[:capacity], capacity, valid=fk != dbase.PAD, assume_sorted=True, ops=ops).table
+    has = t.n > 0
+    i = max(t.n - 1, 0)
+    return _SortedStreamState(
+        state.out_k, state.out_v, state.off + c,
+        int(t.keys[i]) if has else dbase.PAD,
+        t.vals[i] if has else torch.zeros_like(state.bv),
+        has,
+    )
+
+
+def _merge_dict_tables(ds, state, partial, capacity, ops=()):
+    """Merge a chunk's partial aggregate dictionary (the fused kernel's)
+    into the carried state — state entries first, same lane monoids.  The
+    rebuild is capacity-sized every chunk."""
+    sk, sv = state.keys, state.vals
+    pk, pv = partial.keys, partial.vals
+    v1 = (sk != dbase.PAD) & (sk != dbase.EMPTY)
+    v2 = (pk != dbase.PAD) & (pk != dbase.EMPTY)
+    mk = torch.cat([torch.where(v1, sk, dbase.PAD), torch.where(v2, pk, dbase.PAD)])
+    mv = torch.cat([sv, pv])
+    return build_dict(ds, mk, mv, capacity, valid=torch.cat([v1, v2]), assume_sorted=False, ops=ops).table
+
+
+def _empty_dict_state(ds: str, n_lanes: int, capacity: int, ops, device):
+    """A zero-entry accumulator table (an all-invalid build) to seed the
+    streamed fold; its shapes equal every later merge's."""
+    return build_dict(
+        ds,
+        torch.full((1,), dbase.PAD, dtype=torch.int32, device=device),
+        torch.zeros((1, n_lanes), dtype=torch.float32, device=device),
+        capacity,
+        valid=torch.zeros((1,), dtype=torch.bool, device=device),
+        ops=ops,
+    ).table
+
+
+class _StreamSegment(NamedTuple):
+    """One pipeline's worth of a streamed chunk loop: its stages (after the
+    Scan), the var they address, and the build-side inputs (dictionaries,
+    pruned gather sources) captured when the pipeline was reached."""
+
+    out: str
+    pipe: object  # the Pipeline node (or a bare GroupBy)
+    rest: tuple
+    var: str
+    rel: Optional[str]
+    builts: Dict[str, object]
+    src_cols: Dict[str, Dict[str, torch.Tensor]]
+    needed: Tuple[str, ...]  # pruned SOURCE columns (segment 0 only)
+    need: Dict[str, tuple]
+
+
+def _stream_segment(pipe, rest, var, rel, env, need, ct) -> _StreamSegment:
+    dict_syms = []
+    for node in rest:
+        if isinstance(node, (P.HashProbe, P.GroupJoin)):
+            dict_syms.append(node.build)
+        elif isinstance(node, P.Reduce) and node.lookup_sym is not None:
+            dict_syms.append(node.lookup_sym)
+    builts = {s: env[s] for s in dict.fromkeys(dict_syms)}
+    want = need.get(var, ())
+    needed = tuple(c for c in ct.names() if c in want) or tuple(ct.names())
+    return _StreamSegment(pipe.out, pipe, tuple(rest), var, rel, builts, _pruned_src_cols(rest, env, need), needed, dict(need))
+
+
+class _PendingStream:
+    """A streamed region whose Project-terminal output has NOT been
+    materialized.  A downstream single-var pipeline that scans it extends
+    the chain: its stages run as the next segment of the SAME chunk loop.
+    Any consumer that needs the rows calls ``force``, which runs the chain
+    and spills each chunk to a ``HostChunkedTable``.  Each extension builds
+    a new pending sharing the prefix, so a second consumer re-streams from
+    the source."""
+
+    def __init__(self, ct, segments: tuple):
+        self.ct = ct
+        self.segments = segments
+
+    @property
+    def out(self) -> str:
+        return self.segments[-1].out
+
+    def names(self):  # metadata surface for needed-column pruning
+        term = self.segments[-1].rest[-1]
+        return tuple(name for name, _ in term.fields)
+
+    def force(self, env, refs, sigma, allow_sorted, params):
+        _exec_streamed_chain(self.ct, self.segments, env, refs, sigma, allow_sorted, params)
+        return env[self.out]
+
+
+def _make_streamed_chain_fn(segments, ct, needed, sigma, allow_sorted, cap, params):
+    """The per-chunk function of a streamed chain: upload-complete chunk
+    ``i`` is decoded on the device column by column (``ct.chunk_device`` →
+    ``kernels.decode``), then the chained segments run back to back, one
+    segment's Project output becoming the next segment's input frame.
+    ``run(i, payloads, state, final)`` returns the last segment's terminal
+    value: the folded state (GroupBy/GroupJoin), the projected
+    ``(columns, mask, sorted_on)`` (Project) or the partial scalar record
+    (Reduce)."""
+
+    def run(i, payloads, state, final):
+        t = ct.chunk_device(i, needed, pad=True, uploaded=payloads)
+        cols, mask, srt = dict(t.columns), t.mask, t.sorted_on
+        for j, seg in enumerate(segments):
+            f = Frame({seg.var: Table(cols, ct.chunk_rows, mask=mask, sorted_on=srt)}, (seg.var,), {seg.var: seg.rel})
+            scratch, srefs = dict(seg.builts), {}
+            last = j == len(segments) - 1
+            _region_stages(
+                seg.rest, f, scratch, srefs, seg.src_cols, params, sigma, allow_sorted,
+                stream=(state, cap, final) if last and state is not None else None,
+            )
+            term = seg.rest[-1]
+            if isinstance(term, P.Project):
+                out = scratch[term.out]
+                cols, mask, srt = dict(out.columns), out.mask, out.sorted_on
+            elif isinstance(term, P.Reduce):
+                return srefs[term.out]
+            else:
+                return scratch[term.out].res.table
+        return cols, mask, srt
+
+    return run
+
+
+def _run_streamed_pipeline(pipe, rest, ct, var, rel, env, refs, db, sigma, allow_sorted, params, need):
+    """Entry point for a region whose scanned input is chunked storage (or a
+    pending streamed chain).  A Project terminal does not run yet: it
+    publishes a ``_PendingStream`` so downstream pipelines can chain onto
+    the same chunk loop; any other terminal runs the chain now."""
+    seg = _stream_segment(pipe, rest, var, rel, env, need, ct)
+    if isinstance(ct, _PendingStream):
+        segments, ct = ct.segments + (seg,), ct.ct
     else:
-        refs[term.out] = {name: res[i] for i, (name, _) in enumerate(term.fields)}
+        segments = (seg,)
+    if isinstance(rest[-1], P.Project):
+        env[pipe.out] = _PendingStream(ct, segments)
+        _record_region(pipe.out, "streamed-deferred")
+        return
+    _exec_streamed_chain(ct, segments, env, refs, sigma, allow_sorted, params)
+
+
+def _exec_streamed_chain(ct, segments, env, refs, sigma, allow_sorted, params):
+    """Run a chain of fused regions as ONE pass over a chunked relation.
+    Chunks cross the host→device link encoded, chunk i+1's upload is
+    started before chunk i is computed, each chunk decodes on the device
+    and flows through every chained segment.  A GroupBy/GroupJoin terminal
+    folds each chunk into an accumulator sized for the FULL relation (the
+    fused-pipeline kernel per chunk where the region is eligible,
+    ``_stream_kernel_chunks``); a Project terminal (a forced pending) spills
+    each chunk back to host memory as a ``HostChunkedTable``; a Reduce
+    terminal combines the per-chunk partials by each lane's monoid.  No
+    decoded fact-table-sized array exists on the device."""
+    t_chain = time.perf_counter()
+    seg0, seg_last = segments[0], segments[-1]
+    term = seg_last.rest[-1]
+    needed = seg0.needed
+    nchunks = ct.n_chunks
+    dev = ct.device
+
+    # -- carried accumulator for dict terminals -----------------------------
+    is_dict_term = isinstance(term, (P.GroupBy, P.GroupJoin))
+    state, cap, sorted_stream = None, 0, False
+    term_ops: Tuple[str, ...] = ()
+    if is_dict_term:
+        term_ops = tuple(term.ops) if isinstance(term, P.GroupBy) else ()
+        n_lanes = len(term.values) if isinstance(term, P.GroupBy) else 1
+        if len(segments) == 1:
+            meta_f = Frame({seg_last.var: ct}, (seg_last.var,), {seg_last.var: seg_last.rel})
+            cap = _stream_capacity(meta_f, term.keyexpr, term.choice.ds, sigma, ct.nrows)
+            # sort-family terminal keyed by the stream's sort key: fold by
+            # completed-group emission instead of capacity-sized rebuilds
+            if allow_sorted and term.choice.ds.startswith("st"):
+                sorted_stream = bool(_key_info(meta_f, term.keyexpr)[2])
+        else:
+            # a chained input is an intermediate with no Σ row: size for the
+            # full source row count
+            cap = capacity_for(term.choice.ds, ct.nrows)
+        state = (
+            _sorted_stream_init(cap, ct.chunk_rows, n_lanes, dev) if sorted_stream
+            else _empty_dict_state(term.choice.ds, n_lanes, cap, term_ops, dev)
+        )
+        _account_stream(peak_state_bytes=_tensor_bytes(state))
+
+    chunk_dec_bytes = ct.chunk_rows * (4 * len(needed) + 1)
+    # two decoded source chunks live at once (current compute + prefetched
+    # next) plus each chained segment's intermediate projection of the chunk
+    inter_bytes = sum(ct.chunk_rows * (4 * len(seg.rest[-1].fields) + 1) for seg in segments[:-1])
+    _account_stream(regions=len(segments), peak_chunk_bytes=2 * chunk_dec_bytes + inter_bytes)
+
+    # -- the fused-pipeline kernel per chunk, where the region is eligible --
+    if is_dict_term and nchunks and len(segments) == 1:
+        kstate = _empty_dict_state(term.choice.ds, n_lanes, cap, term_ops, dev) if sorted_stream else state
+        if _stream_kernel_chunks(seg0, ct, needed, kstate, cap, term_ops, env, sigma, params):
+            return
+
+    # -- the region's stages per chunk --------------------------------------
+    run = _make_streamed_chain_fn(segments, ct, needed, sigma, allow_sorted, cap, params)
+    pin = dev.type == "cuda"
+    host_chunks: list = []
+    host_masks: list = []
+    partials: list = []
+    chain_h2d = 0
+    up_next = ct.upload_chunk(0, needed)
+    for i in range(nchunks):
+        up, up_next = up_next, (ct.upload_chunk(i + 1, needed) if i + 1 < nchunks else None)
+        chain_h2d += up[1]
+        _account_stream(chunks=1, h2d_bytes=up[1])
+        out = run(i, up[0], state, sorted_stream and i == nchunks - 1)
+        if is_dict_term:
+            state = out
+        elif isinstance(term, P.Project):
+            cols, mask, _ = out
+            host_chunks.append({c: STG.host_copy(a, pin) for c, a in cols.items()})
+            host_masks.append(STG.host_copy(mask, pin))
+        else:
+            partials.append(out)
+
+    for seg in segments[:-1]:
+        _record_region(seg.out, f"streamed-chained:{nchunks}", chunks=nchunks)
+    _record_region(
+        seg_last.out, f"streamed:{nchunks}", family=_terminal_family(term),
+        chunks=nchunks, h2d_bytes=chain_h2d, wall_s=time.perf_counter() - t_chain,
+    )
+
+    # -- publish the terminal -----------------------------------------------
+    if is_dict_term:
+        lanes = tuple(a for a, _ in term.values) if isinstance(term, P.GroupBy) else ("_0",)
+        env[term.out] = BuiltDict(DictResult(term.choice.ds, state), term.choice, lanes=lanes)
+    elif isinstance(term, P.Project):
+        if pin:  # the spill copies ran without blocking: land them first
+            torch.cuda.current_stream(dev).synchronize()
+        env[term.out] = STG.HostChunkedTable(
+            chunks=host_chunks, masks=host_masks, chunk_rows=ct.chunk_rows, nrows=ct.nrows,
+            schema={c: str(a.dtype).replace("torch.", "") for c, a in host_chunks[0].items()},
+            sorted_on=tuple(out[2] or ()), device=dev,
+        )
+    else:  # scalar ref record: combine per-lane monoid partials
+        fops = term.ops or ("sum",) * len(term.fields)
+        total = {}
+        for k, (name, _fx) in enumerate(term.fields):
+            acc = partials[0][name]
+            for p in partials[1:]:
+                if fops[k] == "sum":
+                    acc = acc + p[name]
+                elif fops[k] == "min":
+                    acc = torch.minimum(acc, p[name])
+                else:
+                    acc = torch.maximum(acc, p[name])
+            total[name] = acc
+        refs[term.out] = total
+
+
+def _stream_kernel_chunks(seg, ct, needed, state, cap, term_ops, env, sigma, params) -> bool:
+    """One fused-pipeline launch per decoded chunk for a single-segment
+    dict terminal; each chunk's partial aggregate merges into the carried
+    state (``_merge_dict_tables``).  Returns False when the region is not
+    kernel-eligible (decided structurally, before any chunk moves); a build
+    or launch failure propagates."""
+    rest, var, rel = seg.rest, seg.var, seg.rel
+    term = rest[-1]
+    nchunks = ct.n_chunks
+    t_kern = time.perf_counter()
+    # the lowering reads only column names and dtypes: an empty frame of
+    # the chunk's shape stands in for chunk 0
+    meta = Table(
+        {c: torch.empty((0,), dtype=getattr(torch, ct.schema[c]), device=ct.device) for c in needed},
+        ct.chunk_rows, sorted_on=ct.sorted_on,
+    )
+    kr = _kernel_region(rest, Frame({var: meta}, (var,), {var: rel}), {**env, **seg.builts}, sigma, params, seg.need)
+    if kr is None:
+        return False
+    kern_h2d = 0
+    up_next = ct.upload_chunk(0, needed)
+    for i in range(nchunks):
+        up, up_next = up_next, (ct.upload_chunk(i + 1, needed) if i + 1 < nchunks else None)
+        kern_h2d += up[1]
+        _account_stream(chunks=1, h2d_bytes=up[1])
+        t_i = ct.chunk_device(i, needed, pad=True, uploaded=up[0])
+        partial = _kernel_table(kr, _kernel_launch(kr, Frame({var: t_i}, (var,), {var: rel})))
+        state = _merge_dict_tables(term.choice.ds, state, partial, cap, term_ops)
+    _record_region(
+        seg.out, f"streamed-kernel:{nchunks}", family=_terminal_family(term),
+        chunks=nchunks, h2d_bytes=kern_h2d, wall_s=time.perf_counter() - t_kern,
+    )
+    lanes = tuple(a for a, _ in term.values) if isinstance(term, P.GroupBy) else ("_0",)
+    env[term.out] = BuiltDict(DictResult(term.choice.ds, state), term.choice, lanes=lanes)
     return True
 
 
@@ -884,7 +1456,10 @@ def _run_shared_region(region, envs, refss, db, sigma, allow_sorted, params_list
     for br in region.branches:
         env, refs = envs[br.plan_idx], refss[br.plan_idx]
         need = P.needed_columns(br.pipe.stages)
-        f, rest = _region_input(br.pipe, env, db)
+        got = _region_input(br.pipe, env, refs, db, sigma, allow_sorted, params_list[br.plan_idx], need)
+        if got is None:  # streamed over chunked storage, already published
+            continue
+        f, rest = got
         _faults.check("fused-region", detail=br.pipe.out)
         if not _kernel_pipeline(br.pipe, rest, f, env, refs, sigma, params_list[br.plan_idx], need):
             plain.append((br, f, rest, need))
@@ -1111,18 +1686,28 @@ def _result_view(out):
     return out
 
 
+class StreamedExecutable(Executable):
+    """Executable for databases holding chunked (out-of-core) relations.
+    The streamed driver is a host-side loop over chunks, so each call runs
+    ``execute_plan`` eagerly on the device the chunks stream to; the report
+    carries the call's streaming ledger."""
+
+
 _EXEC_CACHE: Dict[tuple, Executable] = {}
 _EXEC_CACHE_MAX = 64
 
 
 def _db_signature(db: Dict[str, Table]) -> tuple:
-    return tuple(
-        (
-            rel, t.nrows, t.mask is None, t.sorted_on, str(t.device),
-            tuple((c, str(a.dtype)) for c, a in sorted(t.columns.items())),
-        )
-        for rel, t in sorted(db.items())
-    )
+    sig = []
+    for rel, t in sorted(db.items()):
+        if _is_chunked(t):
+            sig.append((rel, "chunked") + tuple(t.signature()))
+        else:
+            sig.append((
+                rel, t.nrows, t.mask is None, t.sorted_on, str(t.device),
+                tuple((c, str(a.dtype)) for c, a in sorted(t.columns.items())),
+            ))
+    return tuple(sig)
 
 
 def _sigma_signature(sigma) -> tuple:
@@ -1136,12 +1721,14 @@ def _sigma_signature(sigma) -> tuple:
 
 def cached_executable(plan, db: Dict[str, Table], sigma=None) -> Executable:
     """The executable cache, keyed by (plan fingerprint, DictChoice tuple,
-    table schema, Σ signature)."""
+    table schema, Σ signature); a database with chunked relations gets a
+    :class:`StreamedExecutable`."""
     key = (plan.fingerprint(), plan.choices, _db_signature(db), _sigma_signature(sigma))
     ex = _EXEC_CACHE.get(key)
     if ex is None:
         _faults.check("compile", detail=str(plan.fingerprint())[:40])
-        ex = Executable(plan, db, sigma=sigma)
+        cls = StreamedExecutable if any(_is_chunked(t) for t in db.values()) else Executable
+        ex = cls(plan, db, sigma=sigma)
         if len(_EXEC_CACHE) >= _EXEC_CACHE_MAX:
             _EXEC_CACHE.pop(next(iter(_EXEC_CACHE)))
         _EXEC_CACHE[key] = ex

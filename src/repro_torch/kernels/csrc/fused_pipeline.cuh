@@ -115,7 +115,10 @@ __device__ __forceinline__ int add_w(int a, int b) { return (int)((unsigned)a + 
 __device__ __forceinline__ int sub_w(int a, int b) { return (int)((unsigned)a - (unsigned)b); }
 __device__ __forceinline__ int mul_w(int a, int b) { return (int)((unsigned)a * (unsigned)b); }
 
-// semiring lane combines: 0 sum, 1 min, 2 max
+// semiring lane combines: 0 sum, 1 min, 2 max, and their identities
+__device__ __forceinline__ float ident(int op) {
+  return op == 0 ? 0.0f : (op == 1 ? INFINITY : -INFINITY);
+}
 __device__ __forceinline__ float combine(int op, float a, float b) {
   return op == 0 ? a + b : (op == 1 ? fminf(a, b) : fmaxf(a, b));
 }

@@ -29,7 +29,9 @@ simple: a thread per row in a grid-stride loop, dictionaries and payload
 slabs read from device memory through L2 (no residency bound, so the
 reference's radix partitioning — a VMEM workaround — is not needed), an
 ``atomicCAS`` claim per accumulated row, ``atomicAdd`` for sum lanes and CAS
-loops for min/max, and a block reduction then one atomic per lane for a
+loops for min/max — into a block-private shared-memory copy of the value
+lanes when the accumulator holds at most ``PRIV_FLOATS`` of them, flushed
+once per block — and a block reduction then one atomic per lane for a
 scalar Reduce.  Shared-memory slabs, radix locality and warp-aggregated
 atomics are later work.
 """
@@ -48,6 +50,8 @@ from . import build
 
 FAMILIES = ("ht_linear", "ht_twochoice", "st_sorted", "st_blocked")
 ACC_KIND = {"ht_linear": 0, "ht_twochoice": 1}  # accumulator probe layouts
+#: value lanes (capacity x lanes) a block privatizes in shared memory (32 KB)
+PRIV_FLOATS = 8192
 _OP_ID = {"sum": 0, "min": 1, "max": 2}
 
 # ---------------------------------------------------------------------------
@@ -520,13 +524,15 @@ class _Emitter:
             "  const long long want = (a.n + 255) / 256;",
             "  const unsigned grid = (unsigned)(want < 4224 ? want : 4224);",
         ]
+        priv = p.out[0] == "dict" and p.out[2] * V <= PRIV_FLOATS
         if p.out[0] == "dict":
             kind = ACC_KIND[p.out[1]]
             launch += [
                 "  int* out_keys = (int*)ptrs[p++];",
                 "  float* out_vals = (float*)ptrs[p++];",
                 "  const int cap = (int)ints[q++];",
-                f"  fp_dict_kernel<{kind}><<<grid, 256, 0, (cudaStream_t)stream>>>"
+                "  const size_t smem = PRIV ? (size_t)cap * NV * sizeof(float) : 0;",
+                f"  fp_dict_kernel<{kind}><<<grid, 256, smem, (cudaStream_t)stream>>>"
                 f"(a, out_keys, out_vals, cap, {MAX_PROBES});",
             ]
         else:
@@ -549,6 +555,7 @@ class _Emitter:
             f"  fp::Dict dict[{max(nd, 1)}];",
             "};",
             f"constexpr int NV = {V};",
+            f"constexpr bool PRIV = {'true' if priv else 'false'};",
             "__device__ __forceinline__ int lane_op(int j) {",
             f"  constexpr int ops[NV] = {{{op_list}}};",
             "  return ops[j];",

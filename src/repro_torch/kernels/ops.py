@@ -11,6 +11,7 @@ from typing import Tuple
 
 import torch
 
+from . import decode as _dk
 from . import merge_lookup as _ml
 from . import ref
 from . import segment_reduce as _sr
@@ -28,3 +29,9 @@ def segment_reduce(keys, vals) -> Tuple[torch.Tensor, torch.Tensor]:
     """Keys MUST be sorted ascending (PAD tail allowed).  The kernel on CUDA
     tensors, its twin on CPU tensors."""
     return _sr.segment_reduce(keys, vals)
+
+
+def decode(code, payload, out_rows) -> torch.Tensor:
+    """One encoded column chunk (``decode.ColumnCode`` + payload tensors) to
+    ``[out_rows]`` rows.  The kernel on CUDA payloads, its twin on CPU ones."""
+    return _dk.decode(code, payload, out_rows)

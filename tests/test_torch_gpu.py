@@ -11,7 +11,10 @@ kernel.  Every launch is held against its plain twin on the same inputs.
 The segment reduce runs adversarial run layouts (one run over thousands of
 tiles, a PAD tail, a ragged last tile, V = 1 and 5), and the in-DB ML path
 (the normal-equation batch, the factorized and naive covariance) runs at a
-small size with every kernel launch held against its twin.
+small size with every kernel launch held against its twin.  The decode
+kernel runs every encoding and bit width on ragged and short final chunks,
+bit for bit against its twin, and a small out-of-core session streams
+lineitem through it.
 """
 import contextlib
 
@@ -26,11 +29,13 @@ from repro_torch.core import plan as P
 from repro_torch.core.cost import AnalyticCostModel, DictChoice
 from repro_torch.core.lower import compile as compile_plan
 from repro_torch.core.synthesis import synthesize
+from repro_torch.data import storage as S
 from repro_torch.data import tpch
 from repro_torch.data.table import collect_stats, from_numpy
 from repro_torch.dicts import base as dbase
 from repro_torch.exec import engine as E
 from repro_torch.exec.queries import REGISTRY
+from repro_torch.kernels import decode as dk
 from repro_torch.kernels import fused_pipeline as fp
 from repro_torch.kernels import merge_lookup as ml
 from repro_torch.kernels import segment_reduce as sr
@@ -286,3 +291,80 @@ def test_indb_ml_path_on_card(cuda):
         ps, pe = sr.segment_reduce_plain(keys, vals)
         assert torch.equal(ge, pe)
         torch.testing.assert_close(gs, ps, rtol=RTOL, atol=ATOL)
+
+
+def _decode_columns(rng, n):
+    """Columns forced to each encoding and bit width: (name, array, kind)."""
+    cols = []
+    for b in (1, 2, 4, 8, 16):
+        a = rng.integers(0, 1 << b, n).astype(np.int32)
+        a[0] = (1 << b) - 1  # the column needs all b bits
+        cols.append((f"bitpack{b}", a, "bitpack"))
+    cols += [
+        ("for", (rng.integers(0, 60000, n) - 123456).astype(np.int32), "for"),
+        ("for_wide", ((1 << 30) + rng.integers(0, 3, n)).astype(np.int32), "for"),
+        ("dict_i32", rng.choice(np.array([-9, 4, 77, 1 << 28], np.int32), n), "dict"),
+        ("dict_f32", rng.choice(rng.standard_normal(300).astype(np.float32), n), "dict"),
+        ("rle_i32", np.repeat(rng.integers(-5, 5, n // 7 + 1), 7)[:n].astype(np.int32), "rle"),
+        ("rle_f32", np.repeat(rng.standard_normal(n // 300 + 1).astype(np.float32), 300)[:n], "rle"),
+    ]
+    return cols
+
+
+@pytest.mark.parametrize("n", [1, 777, 4096, 65_536 - 5, 200_003])
+def test_decode_kernel_matches_plain_on_every_kind(cuda, n):
+    rng = np.random.default_rng(n)
+    chunk_rows = max(65_536, -(-n // 1024) * 1024)
+    for name, a, kind in _decode_columns(rng, n):
+        enc = S.encode_column(a, block=1024, mode=kind)
+        payload = {k: torch.from_numpy(np.array(v)).to(cuda) for k, v in enc.payload.items()}
+        code = dk.column_code(enc)
+        for rows in (n, chunk_rows):  # unpadded, and padded to the chunk
+            before = dk.decode.launches
+            got = dk.decode(code, payload, rows)
+            torch.cuda.synchronize()
+            assert dk.decode.launches == before + 1
+            want = dk.decode_plain(code, payload, rows)
+            assert got.dtype == want.dtype == torch.from_numpy(a).dtype, name
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (name, rows)
+            np.testing.assert_array_equal(got[:n].cpu().numpy(), a)
+
+
+def test_decode_kernel_refuses_what_it_does_not_take(cuda):
+    enc = S.encode_column(np.arange(100, dtype=np.int32), mode="bitpack")
+    payload = {"words": torch.from_numpy(enc.payload["words"]).to(cuda)}
+    code = dk.column_code(enc)
+    with pytest.raises(ValueError):
+        dk.decode(code._replace(bits=3), payload, 100)
+    with pytest.raises(ValueError):
+        dk.decode(code, {"words": payload["words"][:-1]}, 100)
+    with pytest.raises(ValueError):
+        dk.decode(code, payload, 50)  # fewer output rows than encoded rows
+
+
+def test_streamed_session_on_card(cuda):
+    """lineitem streams in 4,096-row chunks through the decode kernel and
+    the fused pipeline; results equal the resident session's and the numpy
+    oracle; every decode launch is bitwise its twin."""
+    db = tpch.generate(scale=0.01, seed=7, device=cuda).tables()
+    sigma = collect_stats(db)
+    budget = int(sum(4 * st.rows * len(st.columns) for rel, st in sigma.rels.items() if rel != "lineitem"))
+    streamed = repro_torch.connect(db, device=cuda, memory_budget=budget, chunk_rows=4096)
+    resident = repro_torch.connect(db, device=cuda)
+    assert streamed.streamed == ("lineitem",)
+    ct = streamed.db["lineitem"]
+    assert ct.device.type == "cuda" and all(t.is_pinned() for p in ct._host[0].values() for t in p.values())
+    for name, q in REGISTRY.items():
+        with recording(dk, "decode") as decodes, recording(fp, "fused_pipeline") as fused:
+            got = streamed.query(name)
+        rep = streamed.report()
+        _same_items(got, resident.query(name))
+        _same_items(got, q.reference(db, **q.defaults))
+        assert rep.chunks >= ct.n_chunks and rep.h2d_bytes > 0
+        assert any(m.startswith("streamed") for m in rep.modes().values())
+        kernel_chunks = sum(int(m.split(":")[1]) for m in rep.modes().values() if m.startswith("streamed-kernel:"))
+        assert len(fused) >= kernel_chunks
+        assert decodes, name
+        for args, out in decodes:
+            assert torch.equal(out.view(torch.int32), dk.decode_plain(*args).view(torch.int32))
+        _fused_calls_match_plain(fused)
