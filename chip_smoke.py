@@ -6,9 +6,11 @@
 Phases (any failure exits non-zero):
 
 1. print the card (``nvidia-smi`` name and power limit, torch's name);
-2. build the static CUDA kernels (merge lookup, segment reduce) from the
-   checkout's sources into ``build/kernels/``, one ``nvcc`` each, started
-   together; each fused region compiles at its first launch;
+2. build the static CUDA kernels (merge lookup, segment reduce, decode,
+   flash attention) from the checkout's sources into ``build/kernels/``, one
+   ``nvcc`` each, started together, and print each kernel's registers and
+   spills as ``-Xptxas -v`` reports them; each fused region compiles at its
+   first launch;
 3. generate TPC-H SF 1 (6M lineitem rows, seed 7) on the card and run the
    five queries through ``repro_torch.connect(db).query(q)`` (the cold run),
    each held against its numpy ``reference()`` at rtol=3e-3, atol=3e-2
@@ -44,7 +46,23 @@ Phases (any failure exits non-zero):
    and every fused launch of the covariance batch timed beside their bounds
    (twins and library calls where they exist); warm walls and peak device
    memory of each path;
-9. out-of-core TPC-H at SF 10 (60,000,000 lineitem rows, seed 7): the
+9. llama3.2-3b inference at its published widths (28 layers, d_model
+   3,072, 24/8 heads of 128, d_ff 8,192, vocab 128,256; random bf16 weights
+   from seed 0, 6.4 GB): the flash-attention kernel against its twin at
+   llama's layer at 2,048 and at small bf16 and f32 shapes (MHA, GQA, MQA,
+   Tq < Tk, non-causal, a window, unaligned lengths, rows that see no key);
+   with the count at 0, a warm prefill forward at 1 × 8,192 through
+   ``Model.forward`` (28 launches, finite logits, a profiled pass); the
+   kernel at the forward's layer-0 inputs against its twin; the kernel, its
+   twin and ``scaled_dot_product_attention`` timed at one layer's shape at
+   T = 8,192 and 32,768 beside the bound; 16 teacher-forced ``decode_step``
+   calls from an empty cache against the forward's logits (cosine >= 0.99
+   a row); the continuous-batching ``Server`` twice, greedy (16 requests, 4
+   slots, 256 cache slots, 16 new tokens each, equal tokens); ``python -m
+   repro_torch.launch.serve --arch llama3.2-3b`` in a subprocess; and the
+   reference's reduced-model logits (``tests/data/torch_lm_reduced.npz``)
+   reproduced through the CUDA kernel in float32;
+10. out-of-core TPC-H at SF 10 (60,000,000 lineitem rows, seed 7): the
    budget is the decoded bytes of every relation but lineitem, so the
    storage plan streams lineitem alone in ``OOC_CHUNK_ROWS``-row chunks,
    encoded and pinned in host memory.  The five queries run through
@@ -61,7 +79,7 @@ Phases (any failure exits non-zero):
    beside its bound, the H2D rate and the overlap of uploads with compute
    come from the copy stream and a profiled pass, and warm walls and peak
    device memory are printed streamed against resident;
-10. print the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+11. print the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Phases 7 and 8 price merges against the card's device memory: the kernels
 read dictionaries from device memory, and the planner's default budget is
@@ -76,6 +94,7 @@ import gc
 import json
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import time
@@ -96,6 +115,38 @@ OOC_SCALE = 10.0  # TPC-H SF 10: 60,000,000 lineitem rows
 # q18's capacity-sized merges take over 500 s a pass each, so the first cut
 # of the phase raises the chunk to 1 << 20 rows (58 chunks)
 OOC_CHUNK_ROWS = 1 << 20
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
+LM_ARCH, LM_SEED = "llama3.2-3b", 0
+# the reference's prefill_32k shape is 32 x 32,768; the phase runs 1 x 8,192
+# (the 32 x 32,768 bf16 logits alone are 269 GB, and the simple kernel costs
+# seconds a forward at 32,768) and times one layer's attention at 32,768
+LM_T, LM_T_LONG = 8192, 32768
+# kernel against twin: float32 sums the same products in another order;
+# bfloat16 rounds the outputs (a step of 2^-8 just below 1) and a p that
+# rounds the other way moves the weighted sum by about as much
+FA_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# bfloat16 rows that see more than FA_LONG_ROW keys average down to outputs
+# of about 0.05, where 1e-2 is loose: there the row's |kernel - twin| is held
+# to FA_REL_TOL of the twin's norm.  Rounding each output to within one bf16
+# step stays under 2^-7; a 64-key tile dropped from a 2,048-key row moves it
+# by 0.08 or more
+FA_LONG_ROW, FA_REL_TOL = 256, 1e-2
+# (B, H, Hkv, Tq, Tk, D, causal, window): llama3.2-3b's layer at 2,048, then
+# MHA, GQA, MQA with Tq < Tk, non-causal, a window, unaligned lengths and
+# rows that see no key (the reference suite's cases and more)
+FA_SHAPES = [
+    (1, 24, 8, 2048, 2048, 128, True, 0),
+    (1, 2, 2, 64, 64, 16, True, 0),
+    (2, 4, 2, 64, 64, 64, True, 0),
+    (1, 4, 1, 32, 96, 16, True, 0),
+    (1, 2, 2, 64, 64, 16, False, 0),
+    (1, 2, 1, 96, 96, 128, True, 40),
+    (1, 1, 1, 50, 70, 16, True, 0),
+    (2, 4, 2, 100, 37, 64, True, 0),
+]
+DECODE_STEPS, DECODE_COS = 16, 0.99  # teacher-forced steps; least cosine of a step's logits to the forward's
+FIXTURE_TOL = 1e-3  # the port's float32 forward on the card against the reference's on the CPU
+SERVE_LINE = r"^\[serve\] 16 requests, 256 tokens, [0-9.]+s \(([0-9.]+) tok/s aggregate over 4 slots, 96 decode steps\)$"
 
 
 def check(cond, msg):
@@ -388,6 +439,257 @@ def reference_job(src, scale, seed, q):
     return keys, np.array([np.ravel(out[k]) for k in keys.tolist()], dtype=np.float32), time.perf_counter() - t0
 
 
+def attention_pairs(Tq, Tk, causal, window):
+    """Visible (query row, key) pairs of one head: the work this run's masks
+    leave (rows end-aligned to the keys)."""
+    n = 0
+    for r in range(Tq):
+        row = r + Tk - Tq
+        hi = min(Tk, row + 1) if causal else Tk
+        lo = max(0, row - window + 1) if window > 0 else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def attention_bound(q, k, causal, window):
+    """(bytes, operations, ms) of bf16 attention: q, k, v read once and the
+    output written once; 4·D operations a visible pair (QK^T and PV) at the
+    bf16 tensor-core rate."""
+    B, H, Tq, D = q.shape
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    nops = 4 * D * B * H * attention_pairs(Tq, k.shape[2], causal, window)
+    return nbytes, nops, 1e3 * max(nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S)
+
+
+def long_row_rel_err(torch, got, want, Tk, causal, window):
+    """Largest |got - want| / |want| (norms over the head dim) among the rows
+    that see more than ``FA_LONG_ROW`` keys, or None when no row does."""
+    Tq = got.shape[2]
+    row = torch.arange(Tq, device=got.device) + (Tk - Tq)
+    hi = torch.clamp(row + 1, max=Tk) if causal else torch.full_like(row, Tk)
+    lo = torch.clamp(row - window + 1, min=0) if window > 0 else torch.zeros_like(row)
+    sel = (hi - lo) > FA_LONG_ROW
+    if not bool(sel.any()):
+        return None
+    w = want[:, :, sel].float()
+    return float(((got[:, :, sel].float() - w).norm(dim=-1) / w.norm(dim=-1)).max())
+
+
+def check_attention(torch, got, want, dtype, Tk, causal, window, what):
+    """Holds a kernel output to its twin's: max |delta| within FA_TOL and, in
+    bfloat16, long rows within FA_REL_TOL; returns (max |delta|, long-row
+    relative error or None)."""
+    err = float((got.float() - want.float()).abs().max())
+    check(err <= FA_TOL[dtype], f"flash attention {what}: max |kernel - twin| {err} above {FA_TOL[dtype]}")
+    rel = long_row_rel_err(torch, got, want, Tk, causal, window) if dtype == "bfloat16" else None
+    check(rel is None or rel <= FA_REL_TOL,
+          f"flash attention {what}: a row of over {FA_LONG_ROW} keys is {rel} off its twin (limit {FA_REL_TOL})")
+    return err, rel
+
+
+def unflatten(flat):
+    """The fixture's ``params/<path>`` arrays as the reference's nested tree."""
+    tree = {}
+    for key, a in flat.items():
+        if key.startswith("params/"):
+            *parents, leaf = key.split("/")[1:]
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = a
+    return tree
+
+
+def lm_phase(torch, dev, src):
+    """llama3.2-3b inference at full width on the card; returns the
+    kernel's rows and the phase's numbers."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import common as MC
+    from repro_torch.models import lm as LM
+    from repro_torch.models.interop import params_from_reference
+    from repro_torch.models.registry import get_model_by_name
+    from repro_torch.serve.serve_loop import Request, Server
+
+    out = {}
+    stamp("9. LM inference: weights")
+    model = get_model_by_name(LM_ARCH, device=dev)
+    cfg = model.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab)
+          == (28, 3072, 24, 8, 128, 8192, 128256), f"{LM_ARCH} is not at its published widths")
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    params = MC.cast_tree(model.init(gen), torch.bfloat16)
+    nbytes = sum(t.numel() * t.element_size() for t in [params["embed"]["table"], params["final_norm"]["scale"]]
+                 + [t for lp in params["layers"] for d in lp.values() for t in d.values()])
+    torch.cuda.synchronize()
+    print(f"{LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; random bf16 weights (seed {LM_SEED}) {nbytes / 1e9:.2f} GB")
+
+    stamp("9. LM inference: flash attention against its twin")
+    fa_err = 0.0
+    for i, (B, H, Hkv, Tq, Tk, D, causal, window) in enumerate(FA_SHAPES):
+        for dtype in ("bfloat16", "float32"):
+            g = torch.Generator(device=dev).manual_seed(i)
+            q, k, v = (torch.randn((B, h, T, D), generator=g, device=dev).to(getattr(torch, dtype))
+                       for h, T in ((H, Tq), (Hkv, Tk), (Hkv, Tk)))
+            got = FA.flash_attention(q, k, v, causal=causal, window=window)
+            want = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
+            err, rel = check_attention(torch, got, want, dtype, Tk, causal, window,
+                                       f"{dtype} {(B, H, Hkv, Tq, Tk, D, causal, window)}")
+            fa_err = max(fa_err, err)
+            print(f"flash attention {dtype} B={B} H={H} Hkv={Hkv} Tq={Tq} Tk={Tk} D={D} causal={causal} "
+                  f"window={window}: max |kernel - twin| {err:.3g} (tolerance {FA_TOL[dtype]})"
+                  + ("" if rel is None else f", rows of over {FA_LONG_ROW} keys {rel:.3g} of their norm "
+                     f"(limit {FA_REL_TOL})"))
+            del q, k, v, got, want
+
+    stamp("9. LM inference: prefill forward")
+    tokens = torch.randint(0, cfg.vocab, (1, LM_T), generator=gen, device=dev)
+    _, out["forward_cold_s"] = wall(torch, lambda: model.forward(params, tokens)[0])
+    FA.flash_attention.launches = 0  # the main path: one warm forward
+    (logits, _), out["forward_warm_s"] = wall(torch, lambda: model.forward(params, tokens))
+    launches = FA.flash_attention.launches
+    check(launches == cfg.n_layers, f"{launches} flash-attention launches in a forward of {cfg.n_layers} layers")
+    check(logits.shape == (1, LM_T, cfg.padded_vocab) and bool(torch.isfinite(logits).all()),
+          "forward logits are not finite or of the wrong shape")
+    head = logits[0, :DECODE_STEPS].float()
+    del logits
+    print(f"prefill forward 1 x {LM_T}: cold {out['forward_cold_s']:.2f}s, warm {out['forward_warm_s'] * 1e3:.1f} ms; "
+          f"{launches} flash-attention launches; logits finite")
+    prof = profile_pass(torch, lambda: model.forward(params, tokens), 12)
+    out["forward_profile"] = prof
+    print(json.dumps({"profile_prefill": prof}))
+
+    stamp("9. LM inference: kernel times")
+    # layer 0's attention inputs in that forward: the embedded tokens through
+    # the attention norm, the projections and rope
+    lp, pos = params["layers"][0], torch.arange(LM_T, device=dev)
+    x = MC.rmsnorm(lp["attn_norm"], MC.embed(params["embed"], tokens).to(LM.act_dtype(cfg)))
+    q, k, v = (F.linear(x, lp["attn"]["w" + n], lp["attn"].get("b" + n)).view(1, LM_T, h, cfg.hd).transpose(1, 2)
+               for n, h in (("q", cfg.n_heads), ("k", cfg.n_kv_heads), ("v", cfg.n_kv_heads)))
+    q, k = MC.rope(q, pos, cfg.rope_theta), MC.rope(k, pos, cfg.rope_theta)
+    del x
+    kw = {"causal": True, "window": 0}
+    got = FA.flash_attention(q, k, v, **kw)
+    # the twin takes seconds at this shape: its one call here is its timing
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    ev[1].record()
+    torch.cuda.synchronize()
+    twin_ms = ev[0].elapsed_time(ev[1])
+    err, rel = check_attention(torch, got, want, "bfloat16", LM_T, True, 0, "at the forward's layer-0 inputs")
+    fa_err = max(fa_err, err)
+    print(f"flash attention at the forward's layer-0 inputs {tuple(q.shape)} / {tuple(k.shape)}: "
+          f"max |kernel - twin| {err:.3g}, rows of over {FA_LONG_ROW} keys {rel:.3g} of their norm")
+    del got, want
+    rows = []
+    for T in (LM_T, LM_T_LONG):
+        if T != LM_T:
+            g = torch.Generator(device=dev).manual_seed(T)
+            q, k, v = (torch.randn((1, h, T, cfg.hd), generator=g, device=dev).to(torch.bfloat16)
+                       for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+        nb, nops, bms = attention_bound(q, k, True, 0)
+        ms = timed(torch, lambda: FA.flash_attention(q, k, v, causal=True), 20 if T == LM_T else 3)
+        plain_ms = twin_ms if T == LM_T else None  # at 32,768 the twin would take over a minute
+        lib_ms = timed(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+                       20 if T == LM_T else 3)
+        lib_err = float((FA.flash_attention(q, k, v, causal=True).float()
+                         - F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True).float()).abs().max())
+        rows.append({"T": T, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bytes": nb, "ops": nops,
+                     "bound_ms": bms, "forward_ms": ms * cfg.n_layers, "forward_bound_ms": bms * cfg.n_layers,
+                     "max_abs_diff_library": lib_err})
+        print(f"flash attention B=1 H={cfg.n_heads} Hkv={cfg.n_kv_heads} T={T} D={cfg.hd} causal bf16: kernel "
+              f"{ms:.3f} ms ({ms / bms:.1f}x its bound {bms:.3f} ms, operations; {nops / ms / 1e9:.1f} TFLOP/s), "
+              f"twin {'not measured' if plain_ms is None else f'{plain_ms:.1f} ms'}, "
+              f"scaled_dot_product_attention {lib_ms:.3f} ms (max |kernel - it| {lib_err:.3g}); "
+              f"x {cfg.n_layers} layers {ms * cfg.n_layers:.1f} ms")
+        del q, k, v
+    out["fa_rows"] = rows
+
+    stamp("9. LM inference: decode against forward")
+    cache = LM.init_cache(cfg, 1, 64, fill_len=0, device=dev)
+    worst_cos, worst_abs = 1.0, 0.0
+    for t in range(DECODE_STEPS):
+        step, cache = model.decode_step(params, cache, tokens[:, t])
+        a, b = step[0].float(), head[t]
+        worst_cos = min(worst_cos, float(F.cosine_similarity(a, b, dim=0)))
+        worst_abs = max(worst_abs, float((a - b).abs().max()))
+    check(worst_cos >= DECODE_COS, f"decode logits drift from the forward's: least cosine {worst_cos}")
+    out["decode_cos"], out["decode_max_abs"] = worst_cos, worst_abs
+    print(f"decode from an empty cache, {DECODE_STEPS} teacher-forced steps against the forward's logits: least "
+          f"cosine {worst_cos:.6f} (>= {DECODE_COS}), max |delta| {worst_abs:.4g} (bf16 logits up to "
+          f"{float(head.abs().max()):.3g})")
+    del cache, head
+
+    stamp("9. LM inference: Server")
+    runs = []
+    FA.flash_attention.launches = 0
+    for _ in range(2):
+        srv = Server(model, params, batch_slots=4, cache_len=256, eos=-1, temperature=0.0)
+        for i in range(16):
+            srv.submit(Request(rid=i, prompt=[1 + i % 7, 2, 3], max_new=16))
+        done, dt = wall(torch, srv.run_until_done)
+        check(len(done) == 16 and all(len(r.out) == 16 for r in done), "the Server did not return 16 x 16 tokens")
+        runs.append(({r.rid: r.out for r in done}, dt, srv.steps_run))
+    check(runs[0][0] == runs[1][0], "two greedy Server runs gave different tokens")
+    out["serve_launches"] = FA.flash_attention.launches
+    out["serve_s"], out["serve_steps"] = runs[1][1], runs[1][2]
+    out["serve_tok_s"] = 256 / runs[1][1]
+    out["decode_step_ms"] = 1e3 * runs[1][1] / runs[1][2]
+    print(f"Server, 16 requests over 4 slots, cache 256, greedy: 256 tokens in {runs[1][1]:.2f}s "
+          f"({out['serve_tok_s']:.1f} tok/s, {runs[1][2]} decode steps, {out['decode_step_ms']:.2f} ms a step; "
+          f"first run {runs[0][1]:.2f}s); both runs gave the same tokens; flash-attention launches "
+          f"{out['serve_launches']} (decode attends through the plain kv_valid path, as in the reference)")
+    cache = model.init_cache(4, 256)
+    tok = torch.tensor([1, 2, 3, 4], device=dev)
+
+    def eight_steps():
+        c = cache
+        for _ in range(8):
+            _, c = model.decode_step(params, c, tok)
+
+    prof = profile_pass(torch, eight_steps, 8)
+    out["decode_profile"] = prof
+    print(json.dumps({"profile_decode_8_steps": prof}))
+    del cache, params, srv, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    stamp("9. LM inference: the launcher")
+    env = dict(os.environ, PYTHONPATH=src)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch", LM_ARCH],
+                          capture_output=True, text=True, env=env, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines and re.match(SERVE_LINE, lines[-1]),
+          f"the launcher failed ({proc.returncode}): {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    out["launcher_s"] = time.perf_counter() - t0
+    print(f"python -m repro_torch.launch.serve --arch {LM_ARCH} ({out['launcher_s']:.1f}s): {lines[-1]}")
+
+    stamp("9. LM inference: the reference's logits through the kernel")
+    with np.load(os.path.join(os.path.dirname(src), "tests", "data", "torch_lm_reduced.npz")) as f:
+        flat = dict(f)
+    rcfg = configs.get(LM_ARCH).reduce(n_kv_heads=2)
+    rparams = params_from_reference(rcfg, unflatten(flat), device=dev)
+    FA.flash_attention.launches = 0
+    got, _ = LM.forward(rcfg, rparams, torch.from_numpy(flat["tokens"]).to(dev))
+    torch.cuda.synchronize()
+    check(FA.flash_attention.launches == rcfg.n_layers, f"{FA.flash_attention.launches} kernel launches for the fixture's {rcfg.n_layers} layers")
+    err = float(np.abs(got.cpu().numpy() - flat["logits"]).max())
+    check(np.allclose(got.cpu().numpy(), flat["logits"], rtol=FIXTURE_TOL, atol=FIXTURE_TOL),
+          f"the fixture's logits differ from the reference's by up to {err}")
+    out["fixture_max_abs"] = err
+    print(f"reduced {LM_ARCH} (Hkv=2, D=16, float32) from tests/data/torch_lm_reduced.npz through the CUDA kernel "
+          f"({FA.flash_attention.launches} launches): max |port - reference| {err:.3g} (tolerance {FIXTURE_TOL})")
+    out["fa_err"] = fa_err
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -433,11 +735,18 @@ def main() -> int:
     # -- 2. build the static kernels, one nvcc each, started together ----------
     stamp("2. build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         for lib in pool.map(lambda name: build.load(name, (build.CSRC / f"{name}.cu").read_text()),
-                            ("merge_lookup", "segment_reduce", "decode")):
+                            ("merge_lookup", "segment_reduce", "decode", "flash_attention")):
             check(lib is not None, "a static kernel did not load")
     print(f"static kernels built in {time.perf_counter() - t0:.1f}s")
+    for rec in build.BUILDS:  # what -Xptxas -v reported for each kernel
+        entry = None
+        for line in rec.ptxas.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                print(f"{rec.name} ({rec.seconds:.1f}s) ...{(entry or '')[-48:]}: {line.split(':', 1)[-1].strip()}")
 
     # -- 3. data and cold run ----------------------------------------------------
     stamp("3. TPC-H data and cold run")
@@ -676,8 +985,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 9. out-of-core TPC-H at SF 10 ----------------------------------------
-    stamp("9. out-of-core TPC-H: data")
+    # -- 9. llama3.2-3b inference, counts from zero -------------------------------
+    lm = lm_phase(torch, dev, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    launches["lm"] = {"flash_attention": lm["launches"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 10. out-of-core TPC-H at SF 10 ----------------------------------------
+    stamp("10. out-of-core TPC-H: data")
     t0 = time.perf_counter()
     db = tpch.generate(scale=OOC_SCALE, seed=SEED, device=dev).tables()
     torch.cuda.synchronize()
@@ -694,7 +1009,7 @@ def main() -> int:
     with ProcessPoolExecutor(len(QUERIES), mp_context=multiprocessing.get_context("spawn")) as pool:
         ref_jobs = {q: pool.submit(reference_job, src, OOC_SCALE, SEED, q) for q in QUERIES}
 
-        stamp("9. chunking lineitem")
+        stamp("10. chunking lineitem")
         t0 = time.perf_counter()
         oo = repro_torch.connect(db, device=dev, memory_budget=budget, chunk_rows=OOC_CHUNK_ROWS)
         chunk_s = time.perf_counter() - t0
@@ -707,11 +1022,11 @@ def main() -> int:
               f"chunked in {chunk_s:.1f}s")
         print(json.dumps({"lineitem_encodings": encodings}))
 
-        stamp("9. resident session at SF 10, cold")
+        stamp("10. resident session at SF 10, cold")
         resident = repro_torch.connect(db, device=dev)
         res_cold = {q: resident.query(q) for q in QUERIES}
 
-        stamp("9. streamed cold")
+        stamp("10. streamed cold")
         li_regions, ooc_cold = {}, {}
         for q in QUERIES:
             ooc_cold[q], cold = wall(torch, lambda: oo.query(q))
@@ -724,7 +1039,7 @@ def main() -> int:
             print(f"streamed cold {q}: {cold:.2f}s; modes {rep.modes()}; chunks {rep.chunks}, h2d {rep.h2d_bytes} B, "
                   f"peak chunk {rep.peak_chunk_bytes} B, peak state {rep.peak_state_bytes} B")
 
-        stamp("9. numpy references")
+        stamp("10. numpy references")
         refs10, ref_s = {}, {}
         for q in QUERIES:
             keys, vals, ref_s[q] = ref_jobs[q].result()
@@ -737,7 +1052,7 @@ def main() -> int:
         same_items(ooc_cold[q], refs10[q], f"{q} SF 10 streamed vs numpy")
     del res_cold, ooc_cold
 
-    stamp("9. resident session at SF 10, warm")
+    stamp("10. resident session at SF 10, warm")
     res_out, res_warm, res_peak, res_before = {}, {}, {}, {}
     for q in QUERIES:
         gc.collect()
@@ -753,7 +1068,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    stamp("9. streamed warm, counts from zero")
+    stamp("10. streamed warm, counts from zero")
     decoded_pairs = [0]
     real_chunk_device = STG.ChunkedTable.chunk_device
 
@@ -811,7 +1126,7 @@ def main() -> int:
           f"fused launches within the tolerance (max |kernel-plain| {max(errs['fused_pipeline'] + [0.0]):.4g})")
     del errs
 
-    stamp("9. streamed warm, timed")
+    stamp("10. streamed warm, timed")
     ooc_warm, ooc_peak, ooc_before = {}, {}, {}
     for q in QUERIES:
         gc.collect()
@@ -851,7 +1166,7 @@ def main() -> int:
             del state, partial, live, vals
     torch.cuda.empty_cache()
 
-    stamp("9. H2D rate, decode kernel")
+    stamp("10. H2D rate, decode kernel")
     copy = STG.copy_stream(dev)
     ups, t_up = [], [torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)]
     torch.cuda.synchronize()
@@ -914,9 +1229,10 @@ def main() -> int:
               f"bound {regions[-1]['bound_ms']:.4f} ms")
     del fused_rows, dec_groups
 
-    # -- 10. the kernels' line --------------------------------------------------
+    # -- 11. the kernels' line --------------------------------------------------
+    fa8k = lm["fa_rows"][0]
     total = {name: sum(path.get(name, 0) for path in launches.values())
-             for name in [name for _, name in kernels_of_path] + ["decode"]}
+             for name in [name for _, name in kernels_of_path] + ["decode", "flash_attention"]}
 
     def entry(name, source, replaces, rows, err, library_ms):
         nbytes = sum(r["bytes"] for r in rows)
@@ -942,6 +1258,12 @@ def main() -> int:
         entry("decode", "src/repro_torch/kernels/csrc/decode.cu", "src/repro/kernels/decode.py:238",
               [{"ms": dec_pass_ms, "plain_ms": sum(r["pass_plain_ms"] for r in dec_rows),
                 "bytes": sum(r["pass_bytes"] for r in dec_rows), "ops": 0}], 0.0, None),
+        # one layer's attention of the 1 x 8,192 prefill forward, bf16 on the tensor cores
+        {"name": "flash_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:92", "launches": total["flash_attention"],
+         "max_abs_err": lm["fa_err"], "ms": fa8k["ms"], "plain_ms": fa8k["plain_ms"], "bound_ms": fa8k["bound_ms"],
+         "bound_by": "bytes" if fa8k["bytes"] / HBM_BYTES_PER_S >= fa8k["ops"] / BF16_OPS_PER_S else "operations",
+         "library_ms": fa8k["library_ms"]},
     ]
     print(json.dumps({"regions": regions, "merge_lookups": ml_rows, "segment_reduce": sr_row,
                       "warm_query_ms": {q: walls[q] * 1e3 for q in QUERIES},
@@ -956,7 +1278,8 @@ def main() -> int:
                       "ooc_h2d_gbs": h2d_gbs, "ooc_chunk_rows": OOC_CHUNK_ROWS, "ooc_chunking_s": chunk_s,
                       "ooc_idle_share": ooc_profile["device_idle_share"],
                       "ooc_h2d_pinned": ooc_profile.get("h2d_pinned"),
-                      "ooc_h2d_pageable": ooc_profile.get("h2d_pageable")}))
+                      "ooc_h2d_pageable": ooc_profile.get("h2d_pageable"),
+                      "lm": {k: v for k, v in lm.items() if k not in ("forward_profile", "decode_profile")}}))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,

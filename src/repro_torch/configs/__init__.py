@@ -1,0 +1,45 @@
+"""Per-architecture configs (the twin of ``repro.configs``).
+
+Each ported module exports ``CONFIG: ArchConfig``; ``get(name)`` resolves
+ids with dashes/dots normalized.  Only the dense decoders are ported; an
+architecture of another family raises ``NotImplementedError`` until its
+slice lands (``ROADMAP.md``).
+"""
+from importlib import import_module
+
+_ALIASES = {
+    "whisper-large-v3": "whisper_large_v3",
+    "granite-20b": "granite_20b",
+    "qwen1.5-0.5b": "qwen1_5_0_5b",
+    "granite-34b": "granite_34b",
+    "llama3.2-3b": "llama3_2_3b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "pixtral-12b": "pixtral_12b",
+    "rwkv6-3b": "rwkv6_3b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+}
+
+ARCH_IDS = tuple(_ALIASES)
+
+# the families whose models are not ported yet, by module
+_NOT_PORTED = {
+    "whisper_large_v3": "audio",
+    "llama4_scout_17b_a16e": "moe",
+    "llama4_maverick_400b_a17b": "moe",
+    "pixtral_12b": "vlm",
+    "rwkv6_3b": "ssm",
+    "jamba_1_5_large_398b": "hybrid",
+}
+
+#: the architectures this package can build
+PORTED_IDS = tuple(a for a, m in _ALIASES.items() if m not in _NOT_PORTED)
+
+
+def get(name: str):
+    mod = _ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
+    if mod in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{name}: the {_NOT_PORTED[mod]} family is not ported to repro_torch yet (ROADMAP.md)"
+        )
+    return import_module(f"repro_torch.configs.{mod}").CONFIG

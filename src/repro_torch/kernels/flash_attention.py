@@ -1,0 +1,149 @@
+"""Flash attention — online-softmax attention with GQA, causal and window
+masks, as a hand-written Hopper kernel (``csrc/flash_attention.cu``).
+
+Replaces ``repro/kernels/flash_attention.py:flash_attention``.  One CUDA
+block per (query head, query tile, batch row) walks the key tiles in order,
+keeping the running max, the running sum and the float32 accumulator of its
+rows, and skips the key tiles that causality and the window mask out
+entirely.  bfloat16 runs on the tensor cores (``mma.sync``, 64 × 64 tiles);
+float32 runs in plain FMA (32 × 16 tiles), so that its sums stay float32.
+
+The plain twin, :func:`flash_attention_plain`, runs the same tiles and the
+same sentinels in PyTorch; the wrapper takes it only for CPU tensors.
+
+Semantics kept from the reference:
+
+* query row ``r`` sits at key position ``r + (Tk - Tq)``: causal masks
+  ``col <= row``, a window ``col > row - window``, and ``col < Tk`` always;
+* query head ``h`` reads KV head ``h // (H / Hkv)`` (no repeated K/V);
+* masked logits are ``-1e30``; ``p`` and the rescale are 0 while the running
+  max is at most ``-5e29``; a row with no visible key returns 0;
+* the scale ``1/sqrt(D)`` multiplies the float32 logits; ``p`` is rounded to
+  ``v.dtype`` before the PV product, and the sum of ``p`` is not.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import build
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 64, 128)
+#: (query rows, key columns) of a tile, per dtype (``csrc/flash_attention.cu``)
+TILES = {torch.bfloat16: (64, 64), torch.float32: (32, 16)}
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+_MAX_GRID_Y = 65535
+
+
+def _skipped(row0: int, rows: int, col0: int, cols: int, causal: bool, window: int) -> bool:
+    """Whether a [row0, row0 + rows) × [col0, col0 + cols) tile is masked
+    whole (``row0`` a key position); the kernel does not visit it."""
+    return (causal and col0 > row0 + rows - 1) or (window > 0 and col0 + cols - 1 <= row0 - window)
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0, bq=None, bk=None) -> torch.Tensor:
+    """``[B, H, Tq, D]`` in ``q.dtype`` from ``q [B, H, Tq, D]`` and ``k``,
+    ``v [B, Hkv, Tk, D]``: the kernel's algorithm tile by tile (by default
+    its tiles for ``q.dtype``), accumulated in float32."""
+    B, H, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    g = H // Hkv
+    dq, dk = TILES.get(q.dtype, (64, 64))
+    bq, bk = bq or dq, bk or dk
+    scale = 1.0 / math.sqrt(D)
+    q_off = Tk - Tq
+    dev = q.device
+    qg = q.reshape(B, Hkv, g, Tq, D).float()  # GQA: the group's heads share their KV head
+    kf, vf = k.float(), v.float()
+    out = torch.empty((B, Hkv, g, Tq, D), dtype=q.dtype, device=dev)
+    for i0 in range(0, Tq, bq):
+        rows = torch.arange(i0, min(i0 + bq, Tq), device=dev) + q_off  # key positions of the rows
+        n = rows.shape[0]
+        m = torch.full((B, Hkv, g, n), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, Hkv, g, n), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, Hkv, g, n, D), dtype=torch.float32, device=dev)
+        for j0 in range(0, Tk, bk):
+            if _skipped(i0 + q_off, bq, j0, bk, causal, window):
+                continue
+            cols = torch.arange(j0, min(j0 + bk, Tk), device=dev)
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qg[:, :, :, i0:i0 + n], kf[:, :, j0:j0 + bk]) * scale
+            mask = torch.ones((n, cols.shape[0]), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= cols[None, :] <= rows[:, None]
+            if window > 0:
+                mask &= cols[None, :] > rows[:, None] - window
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            dead = m_new <= NEG_INF / 2
+            p = torch.where(dead[..., None], 0.0, torch.exp(s - m_new[..., None]))
+            alpha = torch.where(dead, 0.0, torch.exp(m - m_new))
+            l = l * alpha + p.sum(-1)
+            pv = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), vf[:, :, j0:j0 + bk])
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        denom = torch.where(l == 0.0, 1.0, l)
+        out[:, :, :, i0:i0 + n] = (acc / denom[..., None]).to(q.dtype)
+    return out.reshape(B, H, Tq, D)
+
+
+_LIB = {}
+
+
+def _launcher():
+    if "fn" not in _LIB:
+        src = (build.CSRC / "flash_attention.cu").read_text()
+        _LIB["fn"] = build.launcher(build.load("flash_attention", src), "flash_attention_launch")
+    return _LIB["fn"]
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"flash_attention: {msg}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Tensor:
+    """``[B, H, Tq, D]`` in ``q.dtype``.  CPU tensors take
+    :func:`flash_attention_plain`; CUDA tensors launch the kernel or raise.
+
+    The kernel reads any layout whose last dimension is contiguous and whose
+    other strides are multiples of 16 bytes (a head split of a projection
+    needs no copy), and writes its output in ``[B, Tq, H, D]`` memory, so
+    that merging the heads back is a view."""
+    if not (q.is_cuda or k.is_cuda or v.is_cuda):
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    dev = q.device
+    _check(k.device == dev and v.device == dev, "q, k and v must be on one CUDA device")
+    _check(q.dtype in _DTYPE_CODE and k.dtype == q.dtype and v.dtype == q.dtype,
+           f"q, k and v must all be bfloat16 or all float32, got {q.dtype}, {k.dtype}, {v.dtype}")
+    _check(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape, "q must be [B, H, Tq, D], k and v [B, Hkv, Tk, D]")
+    B, H, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    _check(k.shape[0] == B and k.shape[3] == D, f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+    _check(D in HEAD_DIMS, f"head dim {D} is not one of {HEAD_DIMS}")
+    _check(Hkv >= 1 and H % Hkv == 0, f"{H} query heads are not a multiple of {Hkv} KV heads")
+    _check(Tq >= 1 and Tk >= 1 and B >= 1, "empty q or k")
+    _check(window >= 0, "window must be >= 0")
+    _check(-(-Tq // TILES[q.dtype][0]) <= _MAX_GRID_Y and B <= _MAX_GRID_Y, "too many query tiles or batch rows")
+    esz = q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(t.stride(3) == 1, f"{name}'s last dimension must be contiguous")
+        _check(t.data_ptr() % 16 == 0 and all(t.stride(i) * esz % 16 == 0 for i in range(3)),
+               f"{name}'s pointer and strides must be multiples of 16 bytes")
+    out = torch.empty((B, Tq, H, D), dtype=q.dtype, device=dev).transpose(1, 2)
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    build.launch(
+        _launcher(),
+        [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()],
+        [B, H, Hkv, Tq, Tk, D, int(causal), window, _DTYPE_CODE[q.dtype], *strides],
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _FA.launches += 1
+    return out
+
+
+# the launch count lives on the wrapper itself, also when a caller replaces
+# the module attribute with a wrapper of its own
+flash_attention.launches = 0
+_FA = flash_attention

@@ -3,7 +3,8 @@
 
 Policy: a CUDA tensor goes to the hand-written kernel, a CPU tensor to its
 plain PyTorch twin; the kernels' own structural preconditions (the same
-rules as the reference) route to the plain lookup on either device.
+rules as the reference) route to the plain definitions of ``ref`` on either
+device.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Tuple
 import torch
 
 from . import decode as _dk
+from . import flash_attention as _fa
 from . import merge_lookup as _ml
 from . import ref
 from . import segment_reduce as _sr
@@ -35,3 +37,22 @@ def decode(code, payload, out_rows) -> torch.Tensor:
     """One encoded column chunk (``decode.ColumnCode`` + payload tensors) to
     ``[out_rows]`` rows.  The kernel on CUDA payloads, its twin on CPU ones."""
     return _dk.decode(code, payload, out_rows)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, kv_valid=None) -> torch.Tensor:
+    """Attention of ``q [B, H, Tq, D]`` over ``k``, ``v [B, Hkv, Tk, D]``.
+    Without ``kv_valid``: the kernel on CUDA tensors, its twin on CPU
+    tensors.  A ``kv_valid`` mask (the serve path's count of live cache
+    slots) takes the plain definitions, as in the reference, whose kernel has
+    no such mask: the chunked online softmax above 2,048 key slots (K/V stay
+    at ``Hkv`` heads), else the dense softmax over K/V repeated to ``H``
+    heads."""
+    if kv_valid is None:
+        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    if k.shape[2] > 2048:
+        return ref.flash_attention_chunked(q, k, v, causal=causal, window=window, kv_valid=kv_valid)
+    g = q.shape[1] // k.shape[1]
+    if g > 1:
+        k = k.repeat_interleave(g, dim=1)
+        v = v.repeat_interleave(g, dim=1)
+    return ref.flash_attention(q, k, v, causal=causal, window=window, kv_valid=kv_valid)

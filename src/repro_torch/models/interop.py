@@ -1,0 +1,54 @@
+"""The reference's LM parameters as the port's.
+
+``params_from_reference(cfg, tree)`` takes ``repro.models.lm``'s parameter
+pytree as numpy arrays (layers stacked on a leading ``[L, ...]`` axis,
+projections laid out ``[d_in, d_out]`` for ``x @ W``) and returns the port's
+parameters: a list of layers, projections transposed to ``nn.Linear``'s
+``[d_out, d_in]``.  Both packages then compute the same function.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.data.table import resolve_device
+
+from .common import Params
+from .config import ArchConfig
+
+_PROJECTIONS = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("wi", "wg", "wo")}
+_BIASES = ("bq", "bk", "bv")
+
+
+def _tensor(a, device, transpose: bool = False) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: widen exactly, narrow back
+        t = torch.from_numpy(np.ascontiguousarray(a.astype(np.float32))).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))  # a writable copy
+    return (t.T.contiguous() if transpose else t).to(device)
+
+
+def params_from_reference(cfg: ArchConfig, tree, device=None) -> Params:
+    dev = resolve_device(device)
+    lt = tree["layers"]
+    layers = []
+    for i in range(cfg.n_layers):
+        layer = {
+            "attn_norm": {"scale": _tensor(lt["attn_norm"]["scale"][i], dev)},
+            "mlp_norm": {"scale": _tensor(lt["mlp_norm"]["scale"][i], dev)},
+        }
+        for block, names in _PROJECTIONS.items():
+            layer[block] = {n: _tensor(lt[block][n][i], dev, transpose=True) for n in names}
+        for n in _BIASES:
+            if n in lt["attn"]:
+                layer["attn"][n] = _tensor(lt["attn"][n][i], dev)
+        layers.append(layer)
+    out = {
+        "embed": {"table": _tensor(tree["embed"]["table"], dev)},
+        "layers": layers,
+        "final_norm": {"scale": _tensor(tree["final_norm"]["scale"], dev)},
+    }
+    if "head" in tree:
+        out["head"] = {"w": _tensor(tree["head"]["w"], dev, transpose=True)}
+    return out

@@ -1,0 +1,164 @@
+"""Decoder-only LM, dense GQA (granite / qwen / llama) — the twin of
+``repro.models.lm`` for its dense architectures.
+
+The reference scans a stacked layer body under remat; the port runs eagerly
+with no gradient, so the layers are a list walked by a plain loop, and
+the reference's sharding hints (``shard_hint``, ``current_mesh``), which are
+no-ops on one device, are left out.
+
+Entry points:
+    init(cfg, generator, device)                -> params
+    forward(cfg, params, tokens, window)        -> (logits, aux)   (prefill)
+    init_cache(cfg, batch, cache_len, fill_len) -> decode cache
+    decode_step(cfg, params, cache, tok)        -> (logits, cache)
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.data.table import resolve_device
+
+from . import common
+from .common import Params
+from .config import ArchConfig
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def act_dtype(cfg: ArchConfig) -> torch.dtype:
+    return _DTYPES[cfg.act_dtype]
+
+
+def _dense_only(cfg: ArchConfig) -> None:
+    if cfg.model_kind != "decoder" or cfg.moe_experts > 0:
+        raise NotImplementedError(
+            f"{cfg.name}: only dense decoders are ported to repro_torch (MoE and the other kinds: ROADMAP.md)"
+        )
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _layer_init(cfg: ArchConfig, generator, device) -> Params:
+    return {
+        "attn_norm": common.rmsnorm_init(cfg.d_model, device),
+        "mlp_norm": common.rmsnorm_init(cfg.d_model, device),
+        "attn": common.attention_init(
+            generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, device, cfg.qkv_bias
+        ),
+        "mlp": common.swiglu_init(generator, cfg.d_model, cfg.d_ff, device),
+    }
+
+
+def init(cfg: ArchConfig, generator: torch.Generator, device=None) -> Params:
+    """Float32 parameters drawn from ``generator`` (which lies on ``device``):
+    the reference's distributions (projections normal · 1/sqrt(d_in), the
+    embedding normal · 0.02, norms ones, biases zeros).  ``device`` is the
+    card unless the caller names another."""
+    _dense_only(cfg)
+    device = resolve_device(device)
+    p = {
+        "embed": common.embed_init(generator, cfg.padded_vocab, cfg.d_model, device),
+        "layers": [_layer_init(cfg, generator, device) for _ in range(cfg.n_layers)],
+        "final_norm": common.rmsnorm_init(cfg.d_model, device),
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = {"w": common.dense_init(generator, cfg.d_model, cfg.padded_vocab, device)}
+    return p
+
+
+def _logits(params: Params, x: torch.Tensor, adt: torch.dtype) -> torch.Tensor:
+    x = common.rmsnorm(common.cast_tree(params["final_norm"], adt), x)
+    if "head" in params:
+        return torch.nn.functional.linear(x, params["head"]["w"].to(adt))
+    return common.unembed(common.cast_tree(params["embed"], adt), x)
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def _layer_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.Tensor, window: int) -> torch.Tensor:
+    h, _ = common.attention(
+        p["attn"],
+        common.rmsnorm(p["attn_norm"], x),
+        n_heads=cfg.n_heads,
+        n_kv=cfg.n_kv_heads,
+        head_dim=cfg.hd,
+        positions=positions,
+        causal=True,
+        window=window,
+        rope_theta=cfg.rope_theta,
+    )
+    x = x + h
+    return x + common.swiglu(p["mlp"], common.rmsnorm(p["mlp_norm"], x))
+
+
+@torch.no_grad()
+def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits [B, T, padded_vocab], aux[3]); ``aux`` is the
+    reference's MoE loss terms, zeros for a dense model."""
+    adt = act_dtype(cfg)
+    x = common.embed(params["embed"], tokens).to(adt)
+    T = x.shape[1]
+    positions = torch.arange(T, device=x.device)
+    for lp in params["layers"]:
+        x = _layer_apply(cfg, common.cast_tree(lp, adt), x, positions, window)
+    return _logits(params, x, adt), torch.zeros((3,), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# decode (serve) path
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int, fill_len: Optional[int] = None, device=None) -> Params:
+    """``cache_len`` slots; ``len`` = tokens already present (serve shapes
+    start with a full cache; real serving starts at fill_len=0).  ``device``
+    is the card unless another is named."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, cache_len, cfg.hd)
+    adt = act_dtype(cfg)
+    fill = cache_len if fill_len is None else fill_len
+    return {
+        "k": torch.zeros(shape, dtype=adt, device=device),
+        "v": torch.zeros(shape, dtype=adt, device=device),
+        "len": torch.tensor(fill, dtype=torch.int32, device=device),
+    }
+
+
+@torch.no_grad()
+def decode_step(cfg: ArchConfig, params: Params, cache: Params, token: torch.Tensor,
+                window: int = 0) -> Tuple[torch.Tensor, Params]:
+    """One token for every sequence in the batch, attending over the cache.
+    The new K/V are written into ``cache["k"]`` / ``cache["v"]`` in place
+    (the returned cache holds the same tensors and ``len + 1``)."""
+    adt = act_dtype(cfg)
+    x = common.embed(params["embed"], token[:, None]).to(adt)  # [B, 1, d]
+    pos = cache["len"][None]
+    M = cache["k"].shape[3]
+    kv_valid = torch.clamp(cache["len"] + 1, max=M)
+    for i, lp in enumerate(params["layers"]):
+        lp = common.cast_tree(lp, adt)
+        h, _ = common.attention(
+            lp["attn"],
+            common.rmsnorm(lp["attn_norm"], x),
+            n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads,
+            head_dim=cfg.hd,
+            positions=pos,
+            causal=True,
+            window=window,
+            rope_theta=cfg.rope_theta,
+            cache=(cache["k"][i], cache["v"][i]),
+            kv_valid=kv_valid,
+        )
+        x = x + h
+        x = x + common.swiglu(lp["mlp"], common.rmsnorm(lp["mlp_norm"], x))
+    logits = _logits(params, x, adt)
+    return logits[:, 0], {"k": cache["k"], "v": cache["v"], "len": cache["len"] + 1}

@@ -1,0 +1,88 @@
+"""Model registry (the twin of ``repro.models.registry``): a uniform API over
+the model kinds, of which the port has the dense decoder.
+
+``get_model(cfg, device)`` returns a ``Model`` with:
+
+    init(generator)                 -> params
+    forward(params, tokens)         -> (logits, aux)  (prefill shapes)
+    init_cache(batch, cache_len)    -> cache           (a full cache, as the reference)
+    decode_step(params, cache, tok) -> (logits, cache) (decode shapes)
+    make_batch(shape, generator)    -> real tensors
+    supports(shape)                 -> (bool, reason)
+
+The device is the card unless the caller names another; with no CUDA device
+and none named, ``get_model`` raises.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.data.table import resolve_device
+
+from . import lm as lm_mod
+from .config import ArchConfig, ShapeSpec
+
+
+@dataclass
+class Model:
+    cfg: ArchConfig
+    mod: Any
+    device: torch.device
+
+    def init(self, generator: torch.Generator):
+        return self.mod.init(self.cfg, generator, self.device)
+
+    def forward(self, params, tokens, window: int = 0):
+        return self.mod.forward(self.cfg, params, tokens, window=window)
+
+    def init_cache(self, batch: int, cache_len: int):
+        return self.mod.init_cache(self.cfg, batch, cache_len, device=self.device)
+
+    def decode_step(self, params, cache, token):
+        return self.mod.decode_step(self.cfg, params, cache, token)
+
+    def supports(self, shape: ShapeSpec) -> Tuple[bool, str]:
+        # the port has only full-attention decoders; the reference's
+        # sub-quadratic answer for ssm/hybrid comes with those families
+        if shape.name == "long_500k":
+            return False, "pure full attention is quadratic at 500k (DESIGN.md §5)"
+        return True, ""
+
+    def make_batch(self, shape: ShapeSpec, generator: torch.Generator) -> Dict[str, Any]:
+        """Random inputs of ``shape``: a full cache and one token per
+        sequence for decode shapes, else ``tokens`` and ``labels``."""
+        B, T = shape.global_batch, shape.seq_len
+        hi = max(2, self.cfg.vocab - 1)
+        if shape.kind == "decode":
+            return {
+                "cache": self.init_cache(B, T),
+                "token": torch.randint(0, hi, (B,), generator=generator, device=self.device),
+            }
+        return {
+            "tokens": torch.randint(0, hi, (B, T), generator=generator, device=self.device),
+            "labels": torch.randint(0, hi, (B, T), generator=generator, device=self.device),
+        }
+
+
+_KIND_TO_MOD = {"decoder": lm_mod}
+
+
+def get_model(cfg: ArchConfig, device=None) -> Model:
+    if cfg.model_kind not in _KIND_TO_MOD:
+        raise NotImplementedError(f"{cfg.name}: model kind {cfg.model_kind!r} is not ported yet (ROADMAP.md)")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available; pass device='cpu' to run the plain PyTorch path")
+    return Model(cfg, _KIND_TO_MOD[cfg.model_kind], dev)
+
+
+def get_model_by_name(name: str, reduced: bool = False, device=None) -> Model:
+    from repro_torch import configs
+
+    cfg = configs.get(name)
+    if reduced:
+        cfg = cfg.reduce()
+    return get_model(cfg, device)

@@ -14,9 +14,13 @@ tiles, a PAD tail, a ragged last tile, V = 1 and 5), and the in-DB ML path
 small size with every kernel launch held against its twin.  The decode
 kernel runs every encoding and bit width on ragged and short final chunks,
 bit for bit against its twin, and a small out-of-core session streams
-lineitem through it.
+lineitem through it.  The flash-attention kernel runs bfloat16 and float32
+at the shapes ``chip_smoke.py`` gives it (MHA, GQA, MQA, a window, unaligned
+lengths, Tq < Tk, Tq > Tk, non-causal, strided head splits), and a reduced
+llama forward on the card launches it once per layer.
 """
 import contextlib
+import dataclasses
 
 import numpy as np
 import pytest
@@ -36,9 +40,12 @@ from repro_torch.dicts import base as dbase
 from repro_torch.exec import engine as E
 from repro_torch.exec.queries import REGISTRY
 from repro_torch.kernels import decode as dk
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_pipeline as fp
 from repro_torch.kernels import merge_lookup as ml
 from repro_torch.kernels import segment_reduce as sr
+from repro_torch.models import lm
+from repro_torch.models.registry import get_model_by_name
 
 pytestmark = pytest.mark.gpu
 
@@ -368,3 +375,115 @@ def test_streamed_session_on_card(cuda):
         for args, out in decodes:
             assert torch.equal(out.view(torch.int32), dk.decode_plain(*args).view(torch.int32))
         _fused_calls_match_plain(fused)
+
+
+# (B, H, Hkv, Tq, Tk, D, causal, window)
+FLASH_CASES = {
+    "llama_2048": (1, 24, 8, 2048, 2048, 128, True, 0),
+    "mha": (1, 2, 2, 64, 64, 16, True, 0),
+    "gqa": (2, 4, 2, 64, 64, 64, True, 0),
+    "mqa_decode": (1, 4, 1, 32, 96, 16, True, 0),
+    "cross": (1, 2, 2, 64, 64, 16, False, 0),
+    "window": (1, 2, 1, 96, 96, 128, True, 40),
+    "unaligned": (1, 1, 1, 50, 70, 16, True, 0),
+    "masked_rows": (2, 4, 2, 100, 37, 64, True, 0),
+    "tq_lt_tk": (1, 6, 3, 130, 515, 128, True, 0),
+}
+# float32: the same products summed in another order; bfloat16: the outputs
+# are rounded to bfloat16 (a step of 2^-8 just below 1), and a p that rounds
+# the other way moves the weighted sum by about as much
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# bfloat16 rows that see more than 256 keys average down to outputs of about
+# 0.05, where 1e-2 is loose: there each row's |kernel - twin| stays within
+# 1e-2 of the twin's norm (one bf16 step is at most 2^-7 of a value; a
+# 64-key tile dropped from a 2,048-key row moves it by 0.08 or more)
+FLASH_LONG_ROW, FLASH_REL_TOL = 256, 1e-2
+
+
+def _long_row_rel_err(got, want, Tk, causal, window):
+    Tq = got.shape[2]
+    row = torch.arange(Tq, device=got.device) + (Tk - Tq)
+    hi = torch.clamp(row + 1, max=Tk) if causal else torch.full_like(row, Tk)
+    lo = torch.clamp(row - window + 1, min=0) if window > 0 else torch.zeros_like(row)
+    sel = (hi - lo) > FLASH_LONG_ROW
+    w = want[:, :, sel].float()
+    return float(((got[:, :, sel].float() - w).norm(dim=-1) / w.norm(dim=-1)).max()) if bool(sel.any()) else 0.0
+
+
+def _flash_inputs(case, dtype, dev, seed=0):
+    B, H, Hkv, Tq, Tk, D, causal, window = FLASH_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, H, Tq, D), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Hkv, Tk, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Hkv, Tk, D), generator=g, device=dev).to(dtype)
+    return q, k, v, causal, window
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype, monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v, causal, window = _flash_inputs(case, dtype, cuda)
+    n = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.flash_attention.launches == n + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        assert _long_row_rel_err(got, want, k.shape[2], causal, window) <= FLASH_REL_TOL
+    if case == "masked_rows":
+        assert not got[:, :, : q.shape[2] - k.shape[2]].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_flash_attention_kernel_reads_strided_heads(cuda, dtype):
+    """Heads split off a [B, T, H·D] projection (no copy) give the result of
+    contiguous inputs; the output is [B, Tq, H, D] memory seen as [B, H, Tq, D]."""
+    B, T, H, Hkv, D = 2, 77, 8, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((B, T, H * D), generator=g, device=cuda).to(dtype).view(B, T, H, D).transpose(1, 2)
+    kv = torch.randn((B, T, 2 * Hkv * D), generator=g, device=cuda).to(dtype)
+    k = kv[..., : Hkv * D].view(B, T, Hkv, D).transpose(1, 2)
+    v = kv[..., Hkv * D:].view(B, T, Hkv, D).transpose(1, 2)
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    assert got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 2, 8, 32), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)  # head dim 32
+    h = torch.zeros((1, 2, 8, 16), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(h, h, h)  # float16
+    x = torch.zeros((1, 3, 8, 16), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(x, x[:, :2], x[:, :2])  # 3 query heads over 2 KV heads
+    y = torch.zeros((1, 2, 16, 8), device=cuda, dtype=torch.bfloat16).transpose(2, 3)
+    with pytest.raises(ValueError):
+        fa.flash_attention(y, y, y)  # last dimension not contiguous
+
+
+@pytest.mark.parametrize("act_dtype", ["float32", "bfloat16"])
+def test_forward_on_card_launches_the_kernel_once_per_layer(cuda, act_dtype, monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cpu = get_model_by_name("llama3.2-3b", reduced=True, device="cpu")
+    cfg = dataclasses.replace(cpu.cfg, n_kv_heads=2, act_dtype=act_dtype)
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 100), generator=torch.Generator().manual_seed(1))
+    want, _ = lm.forward(cfg, params, toks)
+    dev_params = {"embed": {"table": params["embed"]["table"].to(cuda)},
+                  "layers": [{b: {n: t.to(cuda) for n, t in d.items()} for b, d in lp.items()} for lp in params["layers"]],
+                  "final_norm": {"scale": params["final_norm"]["scale"].to(cuda)}}
+    fa.flash_attention.launches = 0
+    got, _ = lm.forward(cfg, dev_params, toks.to(cuda))
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == cfg.n_layers
+    tol = 1e-4 if act_dtype == "float32" else 5e-2  # bf16: the CPU and the card round differently
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=tol, atol=tol)

@@ -7,7 +7,10 @@
 * the CUDA emitter writes a source for every eligible region of the five
   TPC-H queries;
 * the plain segment reduce against ``repro``'s Pallas kernel in interpret
-  mode and against its semantic oracle (``repro.kernels.ref``).
+  mode and against its semantic oracle (``repro.kernels.ref``);
+* the plain flash attention against ``repro``'s Pallas kernel in interpret
+  mode and against its dense oracle, on the reference suite's six cases, a
+  fully masked row and bfloat16.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +26,7 @@ from repro.data.table import collect_stats as rstats
 from repro.data.table import from_numpy as rfrom_numpy
 from repro.exec import engine as RE
 from repro.kernels import ref as rref
+from repro.kernels.flash_attention import flash_attention as r_flash_attention
 from repro.kernels.merge_lookup import merge_lookup as r_merge_lookup
 from repro.kernels.segment_reduce import segment_reduce as r_segment_reduce
 
@@ -36,6 +40,7 @@ from repro_torch.data import tpch
 from repro_torch.data.interop import from_reference
 from repro_torch.data.table import collect_stats as tstats
 from repro_torch.exec import engine as TE
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_pipeline as fp
 from repro_torch.kernels import merge_lookup as ml
 from repro_torch.kernels import ops as kops
@@ -286,3 +291,101 @@ def test_segment_reduce_plain_matches_reference(case):
 def test_segment_reduce_plain_empty():
     sums, ends = sr.segment_reduce(torch.zeros((0,), dtype=torch.int32), torch.zeros((0, 3)))
     assert sums.shape == (0, 3) and ends.shape == (0,) and ends.dtype == torch.bool
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+# (B, H, Hkv, Tq, Tk, D, causal, window): the reference suite's six cases
+# (tests/test_kernels.py), then Tq > Tk under causality, whose first rows
+# see no key and return 0
+FLASH_CASES = {
+    "mha": (1, 2, 2, 64, 64, 16, True, 0),
+    "gqa": (1, 4, 2, 64, 64, 16, True, 0),
+    "mqa_decode": (1, 4, 1, 32, 96, 16, True, 0),
+    "cross": (1, 2, 2, 64, 64, 16, False, 0),
+    "window": (1, 2, 1, 96, 96, 16, True, 40),
+    "unaligned": (1, 1, 1, 50, 70, 16, True, 0),
+    "masked_rows": (2, 4, 2, 40, 24, 16, True, 0),
+}
+FLASH_TOL = 2e-3  # the reference suite's tolerance for its kernel against the oracle
+
+
+def _qkv(B, H, Hkv, Tq, Tk, D, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, H, Tq, D)).astype(dtype), rng.normal(size=(B, Hkv, Tk, D)).astype(dtype),
+            rng.normal(size=(B, Hkv, Tk, D)).astype(dtype))
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_attention_plain_matches_reference_kernel(case):
+    B, H, Hkv, Tq, Tk, D, causal, window = FLASH_CASES[case]
+    q, k, v = _qkv(B, H, Hkv, Tq, Tk, D, seed=Tq * Tk + H)
+    got = kops.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                               causal=causal, window=window).numpy()
+    assert fa.flash_attention.launches == 0  # CPU tensors take the twin
+    pallas = r_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, window=window,
+                               bq=32, bk=32, interpret=True)
+    g = H // Hkv
+    dense = rref.flash_attention(jnp.asarray(q), jnp.repeat(jnp.asarray(k), g, axis=1),
+                                 jnp.repeat(jnp.asarray(v), g, axis=1), causal=causal, window=window)
+    for want in (pallas, dense):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=FLASH_TOL, atol=FLASH_TOL)
+    if case == "masked_rows":  # rows at key positions < 0 see nothing
+        assert not got[:, :, : Tq - Tk].any()
+
+
+@pytest.mark.parametrize("case", ["gqa", "window", "unaligned"])
+def test_flash_attention_plain_matches_reference_kernel_bf16(case):
+    """bfloat16 in and out, float32 accumulation, ``p`` rounded to bfloat16
+    before the PV product in both.  Tolerance 1e-2: the outputs are rounded
+    to bfloat16 (a step of 2^-8 = 3.9e-3 just below 1, 2^-7 above), and a
+    ``p`` that lands on the other side of a rounding boundary moves the sum."""
+    B, H, Hkv, Tq, Tk, D, causal, window = FLASH_CASES[case]
+    q, k, v = _qkv(B, H, Hkv, Tq, Tk, D, seed=Tq + Tk)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = fa.flash_attention_plain(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (tq, tk, tv))
+    want = r_flash_attention(jq, jk, jv, causal=causal, window=window, bq=32, bk=32, interpret=True)
+    assert want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("case", ["gqa", "window", "masked_rows"])
+def test_flash_attention_plain_tile_skips_are_exact(case):
+    """The key tiles the twin (and the kernel) skip are masked whole: one
+    tile over everything, which skips nothing, gives the same result to
+    float32 rounding of the regrouped sums."""
+    B, H, Hkv, Tq, Tk, D, causal, window = FLASH_CASES[case]
+    q, k, v = (torch.from_numpy(a) for a in _qkv(B, H, Hkv, Tq, Tk, D, seed=7))
+    tiled = fa.flash_attention_plain(q, k, v, causal=causal, window=window, bq=16, bk=8)
+    whole = fa.flash_attention_plain(q, k, v, causal=causal, window=window, bq=Tq, bk=Tk)
+    np.testing.assert_allclose(tiled.numpy(), whole.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_flash_attention_chunked_matches_reference():
+    q, k, v = _qkv(1, 4, 2, 64, 96, 16, seed=3)
+    for causal, window, kv_valid in [(True, 0, None), (False, 0, None), (True, 24, None), (False, 0, 50)]:
+        got = kops.ref.flash_attention_chunked(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                               causal=causal, window=window, chunk=32, kv_valid=kv_valid)
+        want = rref.flash_attention_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                                            window=window, chunk=32, kv_valid=kv_valid)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("Tk,kv_valid", [(48, 1), (48, 30), (48, 48), (2100, 1500)])
+def test_flash_attention_kv_valid_matches_reference_ops(Tk, kv_valid):
+    """A ``kv_valid`` mask takes the plain definitions in both packages: the
+    dense softmax over repeated K/V up to 2,048 slots, the chunked online
+    softmax above."""
+    from repro.kernels import ops as rops
+
+    q, k, v = _qkv(2, 4, 2, 1, Tk, 16, seed=Tk + kv_valid)
+    got = kops.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                               causal=False, kv_valid=torch.tensor(kv_valid))
+    want = rops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False,
+                                kv_valid=jnp.int32(kv_valid))
+    assert fa.flash_attention.launches == 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
