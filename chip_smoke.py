@@ -7,10 +7,10 @@ Phases (any failure exits non-zero):
 
 1. print the card (``nvidia-smi`` name and power limit, torch's name);
 2. build the static CUDA kernels (merge lookup, segment reduce, decode,
-   flash attention) from the checkout's sources into ``build/kernels/``, one
-   ``nvcc`` each, started together, and print each kernel's registers and
-   spills as ``-Xptxas -v`` reports them; each fused region compiles at its
-   first launch;
+   flash attention, hash probe, sorted lookup, hash build) from the
+   checkout's sources into ``build/kernels/``, one ``nvcc`` each, started
+   together, and print each kernel's registers and spills as ``-Xptxas -v``
+   reports them; each fused region compiles at its first launch;
 3. generate TPC-H SF 1 (6M lineitem rows, seed 7) on the card and run the
    five queries through ``repro_torch.connect(db).query(q)`` (the cold run),
    each held against its numpy ``reference()`` at rtol=3e-3, atol=3e-2
@@ -21,7 +21,8 @@ Phases (any failure exits non-zero):
    >= 1 merge-lookup launch (Q9);
 5. hold every kernel launch of that run against its plain PyTorch twin on
    the same card inputs: equal key sets / found flags, float lanes within
-   the tolerance above (atomics fold float32 sums in another order);
+   the tolerance above (atomics fold float32 sums in another order), the
+   dictionary kernels' probes and lookups bit for bit;
 6. time each kernel and its twin with CUDA events (mean over repeated
    launches after a warm-up), beside its least-time bound (bytes over
    3.35 TB/s or operations over 67 TFLOP/s, whichever is larger) and, for
@@ -31,7 +32,8 @@ Phases (any failure exits non-zero):
    ``plan.merge_shared_scans`` (regions {lineitem: 5, orders: 4,
    supplier: 2}) and run with the counts at 0 through
    ``engine.cached_shared_executable``; each result equals its per-query
-   result and its numpy reference, every kernel launch its twin; the
+   result and its numpy reference, every kernel launch (the dictionary
+   kernels' too) its twin; the
    batch's warm wall beside the sum of the five per-query warm walls;
 8. in-DB ML at the Retailer dataset's scale (LMFAO, SIGMOD 2019: fact
    Inventory 84,055,817 rows, dimension Weather 1,159,457), the example's
@@ -78,8 +80,25 @@ Phases (any failure exits non-zero):
    per launch (device time: launches queued behind a sleep) and per pass
    beside its bound, the H2D rate and the overlap of uploads with compute
    come from the copy stream and a profiled pass, and warm walls and peak
-   device memory are printed streamed against resident;
-11. print the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+   device memory are printed streamed against resident; the dictionary
+   kernels' launches are counted and held against their twins as they
+   happen;
+11. the installation stage on the card: ``repro_torch.costmodel.install``
+   profiles the four dictionary families (the reference's sweep over 16 ..
+   131,072 keys, extended to 2^21 so that Δ covers SF 1's orders; both
+   orderings, ``repeats=3``) with the counts at 0 and each dictionary
+   kernel launched at least once; every distinct input of those launches
+   is held against its twin after the sweep; knn4 is trained per (family,
+   op, ordering), stored, loaded and round-tripped with equal ``op_cost``;
+   TPC-H SF 1 (seed 7) is generated again, each query's choices are printed
+   under the analytic and the learned Δ; the five queries run through
+   ``connect(db, delta=learned)`` cold, then warm with the counts at 0,
+   each equal to its numpy reference and every launch to its twin; the
+   three dictionary kernels are timed at SF 1's shapes (6,000,000
+   l_orderkey probes into / a build of the 1,500,000 orderkeys, C =
+   4,194,304) beside their bounds, twins and, for the sorted lookup,
+   ``searchsorted`` plus a gather;
+12. print the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Phases 7 and 8 price merges against the card's device memory: the kernels
 read dictionaries from device memory, and the planner's default budget is
@@ -207,18 +226,24 @@ def dict_arrays(keys, vals, empty):
 
 
 @contextlib.contextmanager
-def recording(targets):
+def recording(targets, distinct=False):
     """Set each wrapper's launch count to 0, then record every call of
-    ``module.name`` as ``(args, out)`` under ``calls[name]``."""
+    ``module.name`` as ``(args, out)`` under ``calls[name]``.  With
+    ``distinct``, only the first call on each set of input tensors is kept
+    (a timing loop repeats one input; the record keeps it once)."""
     calls, saved = {}, []
     for mod, name in targets:
         real = getattr(mod, name)
         real.launches = 0
-        log = calls[name] = []
+        log, seen = [], set()
+        calls[name] = log
 
-        def rec(*args, _real=real, _log=log):
+        def rec(*args, _real=real, _log=log, _seen=seen):
             out = _real(*args)
-            _log.append((args, out))
+            key = tuple(id(a) for a in args if hasattr(a, "data_ptr"))
+            if not distinct or key not in _seen:  # recorded inputs stay alive, so their ids stay theirs
+                _seen.add(key)
+                _log.append((args, out))
             return out
 
         setattr(mod, name, rec)
@@ -297,6 +322,34 @@ def check_segment(torch, sr, calls, what):
               f"{what}: segment reduce sums differ from the plain twin")
         worst = max(worst, float((sums - psums).abs().max()))
         del psums, pends
+    return worst
+
+
+def check_dict(torch, dbase, calls, what):
+    """Every dictionary-kernel launch of ``calls`` (``{name: [(args, out),
+    ...]}``) against its plain twin on the same card inputs: probes and
+    lookups equal bit for bit (found flags and value rows); a build's key set
+    exactly, its sums within the tolerance (atomics fold float32 sums in
+    another order).  Returns the largest |kernel - twin| of the builds."""
+    from repro_torch.kernels import hash_build as hb
+    from repro_torch.kernels import hash_probe as hp
+    from repro_torch.kernels import sorted_lookup as sl
+
+    worst = 0.0
+    for name, twin in (("hash_probe", hp.hash_probe_plain), ("sorted_lookup", sl.sorted_lookup_plain)):
+        for args, out in calls.get(name, ()):
+            want = twin(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(out[1], want[1]), f"{what}: {name} found flags differ from the plain twin")
+            check(torch.equal(out[0], want[0]), f"{what}: {name} values differ from the plain twin")
+    for args, out in calls.get("hash_build", ()):
+        want = hb.hash_build_plain(*args)
+        torch.cuda.synchronize()
+        gk, gv = dict_arrays(*out, dbase.EMPTY)
+        wk, wv = dict_arrays(*want, dbase.EMPTY)
+        check(np.array_equal(gk, wk), f"{what}: hash build key sets differ from the plain twin")
+        np.testing.assert_allclose(gv, wv, rtol=RTOL, atol=ATOL, err_msg=f"{what}: hash build")
+        worst = max(worst, float(np.abs(gv - wv).max()) if len(wk) else 0.0)
     return worst
 
 
@@ -690,6 +743,176 @@ def lm_phase(torch, dev, src):
     return out
 
 
+def install_phase(torch, dev, refs, walls, root):
+    """The installation stage on the card, then TPC-H SF 1 under the learned
+    Δ: the profiling sweep over every family (counts from zero; each
+    distinct input of a dictionary kernel held against its twin afterwards,
+    so the checks stay out of the timed calls), Δ trained, stored and loaded,
+    the five queries' choices under both Δ, the main path under the learned
+    Δ (counts from zero, every launch against its twin), and the dictionary
+    kernels timed at the shapes of TPC-H SF 1."""
+    import shutil
+
+    import repro_torch
+    from repro_torch import costmodel as CM
+    from repro_torch.costmodel import profiler as PROF
+    from repro_torch.data import tpch
+    from repro_torch.dicts import base as dbase
+    from repro_torch.dicts import ht_linear, st_sorted
+    from repro_torch.kernels import fused_pipeline as fp
+    from repro_torch.kernels import hash_build as hb
+    from repro_torch.kernels import hash_probe as hp
+    from repro_torch.kernels import merge_lookup as ml
+    from repro_torch.kernels import segment_reduce as sr
+    from repro_torch.kernels import sorted_lookup as sl
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+    dict_targets = [(hp, "hash_probe"), (sl, "sorted_lookup"), (hb, "hash_build")]
+    real_hp, real_sl, real_hb = hp.hash_probe, sl.sorted_lookup, hb.hash_build
+
+    stamp("11. installation stage: the sweep")
+    store = os.path.join(root, "build", "costmodel_smoke")  # a fresh store under the checkout's build/
+    shutil.rmtree(store, ignore_errors=True)
+    stats = {}
+    with recording(dict_targets, distinct=True) as sample:
+        learned, sweep_s = wall(torch, lambda: CM.install(store, device=dev, repeats=3, stats=stats))
+    launches = out["launches"]["install"] = {name: getattr(mod, name).launches for mod, name in dict_targets}
+    table = CM.load_profile(store)
+    n_rows = 8 * sum(1 + (5 if size <= 256 else 3) + 6 for size in PROF.INSTALL_SIZES)
+    check(len(table.rows) == n_rows and all(r.seconds > 0 for r in table.rows),
+          f"the sweep gave {len(table.rows)} rows, not {n_rows} with positive times")
+    for name, count in launches.items():
+        check(count >= 1, f"no {name} launch in the installation sweep")
+    out["sweep"] = dict(stats, seconds=sweep_s, rows=len(table.rows), sizes=list(PROF.INSTALL_SIZES))
+    print(f"installation sweep: {len(table.rows)} rows, sizes {PROF.INSTALL_SIZES[0]}..{PROF.INSTALL_SIZES[-1]}, "
+          f"4 families x 2 orderings, repeats=3: {sweep_s:.1f}s (operation calls with their warm-ups "
+          f"{stats['call_s']:.1f}s, numpy draws and sorts {stats['draw_s']:.1f}s, uploads {stats['upload_s']:.1f}s, "
+          f"the rest {sweep_s - sum(stats.values()):.1f}s); launches {launches}")
+    # each row's median call, times the warm-up and the repeats: the calls' seconds by family
+    by_family = out["sweep"]["call_s_by_family"] = {
+        ds: 4 * sum(r.seconds for r in table.rows if r.ds == ds) for ds in sorted({r.ds for r in table.rows})}
+    print("the sweep's calls by family (4 x each row's median): "
+          + ", ".join(f"{ds} {sec:.1f}s" for ds, sec in by_family.items()))
+    per_op = out["per_op_ns"] = {}
+    for r in table.rows:
+        if r.size in (2**14, 2**21) and r.n == r.size:  # the distinct insert and the 1:1 lookups
+            per_op.setdefault(f"{r.ds} {r.op} {'ordered' if r.ordered else 'unordered'}", {})[r.size] = r.per_op_ns
+    for key, ns in per_op.items():
+        print(f"  {key}: " + ", ".join(f"{ns[size]:.2f} ns an op at 2^{size.bit_length() - 1}" for size in sorted(ns)))
+
+    stamp("11. installation stage: sampled launches against their twins")
+    hb_err = check_dict(torch, dbase, sample, "installation sweep")
+    print(f"every distinct input of the sweep's dictionary kernels ({ {k: len(v) for k, v in sample.items()} }) "
+          f"equals its plain twin; hash build max |kernel - twin| {hb_err:.3g}")
+    del sample
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    stamp("11. training and planning")
+    loaded = CM.load_model(store)
+    retrained = CM.train(table)
+    CM.save_model(retrained, store + "_retrained")
+    reloaded = CM.load_model(store + "_retrained")
+    grid = [(ds, op, o, n, size) for ds, op, o in sorted(learned.models)
+            for n, size in ((1, 16), (1000, 4096), (6_000_000, 1_500_000), (1_500_000, 1_500_000), (10**8, 10**7))]
+    costs = [[m.op_cost(ds, op, n, size, o) for ds, op, o, n, size in grid]
+             for m in (learned, loaded, retrained, reloaded)]
+    check(all(c == costs[0] for c in costs), "op_cost changed across train / save_model / load_model")
+    print(f"Δ: knn4 over {len(learned.models)} (family, op, ordering) keys; op_cost equal over {len(grid)} points "
+          f"after install, load_model, train and a save_model / load_model round trip")
+    t0 = time.perf_counter()
+    db = tpch.generate(scale=SCALE, seed=SEED, device=dev).tables()
+    torch.cuda.synchronize()
+    print(f"data: TPC-H SF {SCALE} seed {SEED} on {dev} again ({time.perf_counter() - t0:.1f}s)")
+    analytic = repro_torch.connect(db, device=dev)
+    session = repro_torch.connect(db, device=dev, delta=loaded)
+    changed = out["changed_choices"] = {}
+    for q in QUERIES:
+        a, b = analytic.explain(q)["choices"], session.explain(q)["choices"]
+        diff = {sym for sym in set(a) | set(b) if a.get(sym) != b.get(sym)}
+        changed[q] = {sym: [a.get(sym), b.get(sym)] for sym in sorted(diff)}
+        print(f"{q} choices, analytic Δ -> learned Δ (* differs): "
+              + ", ".join(f"{sym}{'*' if sym in diff else ''} {a.get(sym)} -> {b.get(sym)}" for sym in sorted(set(a) | set(b))))
+    del analytic
+
+    stamp("11. the main path under the learned Δ: cold")
+    for q in QUERIES:
+        got, cold = wall(torch, lambda: session.query(q))
+        same_items(got, refs[q], f"{q} (learned Δ, cold)")
+        print(f"cold {q} under the learned Δ: {cold:.2f}s, {len(got)} groups match the numpy reference")
+    stamp("11. the main path under the learned Δ: warm, counts from zero")
+    targets = [(fp, "fused_pipeline"), (ml, "merge_lookup"), (sr, "segment_reduce")] + dict_targets
+    lwalls, lmodes = {}, {}
+    with recording(targets) as calls:
+        for q in QUERIES:
+            got, lwalls[q] = wall(torch, lambda: session.query(q))
+            lmodes[q] = session.report().modes()
+            same_items(got, refs[q], f"{q} (learned Δ, warm)")
+    launches = out["launches"]["learned"] = {name: getattr(mod, name).launches for mod, name in targets}
+    for q in QUERIES:
+        print(f"warm {q}: learned Δ {lwalls[q] * 1e3:.1f} ms, analytic Δ (phase 4) {walls[q] * 1e3:.1f} ms; "
+              f"regions {lmodes[q]}")
+    print(f"launches on the path under the learned Δ: {launches}")
+    check(launches["fused_pipeline"] >= 1, "no fused-pipeline launch under the learned Δ")
+    out["fp_err"] = check_fused(torch, fp, dbase, calls["fused_pipeline"], "learned Δ")
+    check_merge(torch, ml, calls["merge_lookup"], "learned Δ")
+    check_segment(torch, sr, calls["segment_reduce"], "learned Δ")
+    hb_err = max(hb_err, check_dict(torch, dbase, calls, "learned Δ"))
+    out["warm_ms"] = {q: lwalls[q] * 1e3 for q in QUERIES}
+    out["modes"] = lmodes
+    del calls
+    # where a warm pass under the learned Δ spends device time, and how long the device idles
+    out["profile"] = profile_pass(torch, lambda: [session.query(q) for q in QUERIES], 12)
+    print(json.dumps({"profile_learned": out["profile"]}))
+    del session
+
+    stamp("11. dictionary kernels at TPC-H SF 1 shapes")
+    okeys = db["orders"].col("orderkey").to(torch.int32).contiguous()
+    probes = db["lineitem"].col("orderkey").to(torch.int32).contiguous()
+    n_o, n = okeys.shape[0], probes.shape[0]
+    cap, V, P = dbase.default_capacity(n_o), 1, ht_linear.MAX_PROBES
+    ones = torch.ones((n_o, V), device=dev)
+    shuffled = probes[torch.randperm(n, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)]
+    tk, tv = real_hb(okeys, ones, cap, P, None)
+    st = st_sorted.build(okeys, ones, cap)
+    hb_err = max(hb_err, check_dict(torch, dbase, {
+        "hash_build": [((okeys, ones, cap, P, None), (tk, tv))],
+        "hash_probe": [((tk, tv, probes, P), real_hp(tk, tv, probes, P))],
+        "sorted_lookup": [((st.keys, st.vals, shuffled), real_sl(st.keys, st.vals, shuffled))],
+    }, "SF 1 shapes"))
+    table_bytes = cap * (4 + 4 * V)  # keys and value rows, every slot read (probe) or written (build) once
+    query_bytes = n * 4 + n * (4 * V + 1)
+    live_bytes = st.n * (4 + 4 * V)  # a search reaches only the live prefix, as merge_row counts it
+
+    def library():
+        idx = torch.searchsorted(st.keys, shuffled).clamp_(max=cap - 1)
+        return st.vals[idx], st.keys[idx] == shuffled
+
+    rows = out["rows"] = {
+        "hash_probe": {"C": cap, "V": V, "n": n, "ms": timed(torch, lambda: real_hp(tk, tv, probes, P), 20),
+                       "plain_ms": timed(torch, lambda: hp.hash_probe_plain(tk, tv, probes, P), 3),
+                       "library_ms": None, "bytes": query_bytes + table_bytes, "ops": n},
+        "hash_build": {"C": cap, "V": V, "n": n_o, "ms": timed(torch, lambda: real_hb(okeys, ones, cap, P, None), 20),
+                       "plain_ms": timed(torch, lambda: hb.hash_build_plain(okeys, ones, cap, P, None), 3),
+                       "library_ms": None, "bytes": n_o * (4 + 4 * V) + table_bytes, "ops": n_o * V},
+        "sorted_lookup": {"C": cap, "V": V, "n": n, "ms": timed(torch, lambda: real_sl(st.keys, st.vals, shuffled), 20),
+                          "plain_ms": timed(torch, lambda: sl.sorted_lookup_plain(st.keys, st.vals, shuffled), 5),
+                          "library_ms": timed(torch, library, 20), "bytes": query_bytes + live_bytes,
+                          "ops": n * cap.bit_length()},
+    }
+    for name, r in rows.items():
+        r["bound_ms"] = bound_ms(r["bytes"], r["ops"])
+        print(f"{name} C={cap} V={V} n={r['n']}: kernel {r['ms']:.3f} ms ({r['ms'] / r['bound_ms']:.1f}x its bound "
+              f"{r['bound_ms']:.4f} ms, bytes), plain {r['plain_ms']:.3f} ms"
+              + ("" if r["library_ms"] is None else f", searchsorted+gather {r['library_ms']:.3f} ms"))
+    out["hb_err"] = hb_err
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"installation phase: {out['seconds']:.1f}s")
+    del db, tk, tv, st, okeys, probes, shuffled, ones
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -712,8 +935,11 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import decode as DK
     from repro_torch.kernels import fused_pipeline as fp
+    from repro_torch.kernels import hash_build as hb
+    from repro_torch.kernels import hash_probe as hp
     from repro_torch.kernels import merge_lookup as ml
     from repro_torch.kernels import segment_reduce as sr
+    from repro_torch.kernels import sorted_lookup as sl
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -731,13 +957,16 @@ def main() -> int:
     card_fusion = dataclasses.replace(FusionCostModel(), vmem_budget=torch.cuda.get_device_properties(0).total_memory)
     real_fp, real_ml, real_sr, real_dk = fp.fused_pipeline, ml.merge_lookup, sr.segment_reduce, DK.decode
     kernels_of_path = [(fp, "fused_pipeline"), (ml, "merge_lookup"), (sr, "segment_reduce")]
+    # the dictionary kernels: the families' builds and lookups on the card
+    dict_kernels = [(hp, "hash_probe"), (sl, "sorted_lookup"), (hb, "hash_build")]
+    dict_names = [name for _, name in dict_kernels]
 
     # -- 2. build the static kernels, one nvcc each, started together ----------
     stamp("2. build")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        for lib in pool.map(lambda name: build.load(name, (build.CSRC / f"{name}.cu").read_text()),
-                            ("merge_lookup", "segment_reduce", "decode", "flash_attention")):
+    static = ("merge_lookup", "segment_reduce", "decode", "flash_attention", "hash_probe", "sorted_lookup", "hash_build")
+    with ThreadPoolExecutor(max_workers=len(static)) as pool:
+        for lib in pool.map(lambda name: build.load(name, (build.CSRC / f"{name}.cu").read_text()), static):
             check(lib is not None, "a static kernel did not load")
     print(f"static kernels built in {time.perf_counter() - t0:.1f}s")
     for rec in build.BUILDS:  # what -Xptxas -v reported for each kernel
@@ -770,12 +999,12 @@ def main() -> int:
     # -- 4. the per-query path, counts from zero ----------------------------------
     stamp("4. per-query path")
     walls, modes, per_query = {}, {}, {}
-    with recording(kernels_of_path) as calls:
+    with recording(kernels_of_path + dict_kernels) as calls:
         for q in QUERIES:
             per_query[q], walls[q] = wall(torch, lambda: session.query(q))
             modes[q] = session.report().modes()
             same_items(per_query[q], refs[q], f"{q} (warm run)")
-    launches = {"per_query": {name: getattr(mod, name).launches for mod, name in kernels_of_path}}
+    launches = {"per_query": {name: getattr(mod, name).launches for mod, name in kernels_of_path + dict_kernels}}
     fp_calls, ml_calls = calls["fused_pipeline"], calls["merge_lookup"]
     for q in QUERIES:
         print(f"warm {q}: {walls[q] * 1e3:.1f} ms; regions {modes[q]}")
@@ -807,6 +1036,7 @@ def main() -> int:
               f"max |kernel-plain| {err:.4g}")
 
     check_merge(torch, ml, ml_calls, "per-query")
+    hb_err = check_dict(torch, dbase, calls, "per-query")
     ml_rows = []
     for (keys, vals, qs), _ in ml_calls:
         ml_rows.append(merge_row(torch, ml, real_ml, keys, vals, qs, 20))
@@ -823,10 +1053,10 @@ def main() -> int:
     print(f"TPC-H shared batch: {merged}")
     check(merged == TPCH_MERGE, f"the five queries merge as {merged}, not {TPCH_MERGE}")
     batch_params = [REGISTRY[q].bind_defaults({}) for q in QUERIES]
-    with recording(kernels_of_path) as calls:
+    with recording(kernels_of_path + dict_kernels) as calls:
         ex = E.cached_shared_executable(sp, session.db, sigma=session.sigma)
         outs, batch_cold = wall(torch, lambda: ex(session.db, batch_params))
-    launches["tpch_batch"] = {name: getattr(mod, name).launches for mod, name in kernels_of_path}
+    launches["tpch_batch"] = {name: getattr(mod, name).launches for mod, name in kernels_of_path + dict_kernels}
     batch_modes = ex.last_report.modes()
     print(f"TPC-H batch (cold {batch_cold:.2f}s): modes {batch_modes}; launches {launches['tpch_batch']}")
     eligible = sum(isinstance(b.pipe.stages[-1], (P.GroupBy, P.GroupJoin, P.Reduce))
@@ -840,6 +1070,7 @@ def main() -> int:
         same_items(got, refs[q], f"{q} (shared batch vs numpy)")
     fp_err = max(fp_err, check_fused(torch, fp, dbase, calls["fused_pipeline"], "TPC-H batch"))
     check_merge(torch, ml, calls["merge_lookup"], "TPC-H batch")
+    hb_err = max(hb_err, check_dict(torch, dbase, calls, "TPC-H batch"))
     del calls, outs
     # results to the host as session.query returns them, so the walls compare
     _, batch_warm = wall(torch, lambda: [o.items_np() for o in ex(session.db, batch_params)])
@@ -898,13 +1129,13 @@ def main() -> int:
         "naive": lambda: E.covar_naive(S, R),
     }
     cold, results = {}, {}
-    with recording(kernels_of_path) as calls:
+    with recording(kernels_of_path + dict_kernels) as calls:
         for name, fn in paths.items():
             results[name], cold[name] = wall(torch, fn)
             if name == "batch":
                 batch_fused = len(calls["fused_pipeline"])
                 ml_modes = ex.last_report.modes()
-    launches["indb_ml"] = {name: getattr(mod, name).launches for mod, name in kernels_of_path}
+    launches["indb_ml"] = {name: getattr(mod, name).launches for mod, name in kernels_of_path + dict_kernels}
     for rg in sp.regions:
         for b in rg.branches:
             term = b.pipe.stages[-1]
@@ -930,6 +1161,7 @@ def main() -> int:
     sr_err = check_segment(torch, sr, calls["segment_reduce"], "in-DB ML")
     fp_err = max(fp_err, check_fused(torch, fp, dbase, calls["fused_pipeline"], "covariance batch"))
     check_merge(torch, ml, calls["merge_lookup"], "in-DB ML")
+    hb_err = max(hb_err, check_dict(torch, dbase, calls, "in-DB ML"))
     stamp("8. in-DB ML: kernel times")
     cov_fused = []
     for args, _ in calls["fused_pipeline"][:batch_fused]:
@@ -1097,18 +1329,22 @@ def main() -> int:
         check_merge(torch, ml, [(args, out)], "SF 10 streamed")
         return 0.0
 
+    def check_dict_now(name):
+        return lambda args, out: check_dict(torch, dbase, {name: [(args, out)]}, "SF 10 streamed")
+
     sr.segment_reduce.launches = 0  # not on this path: its count must stay 0
     STG.ChunkedTable.chunk_device = counting_chunk_device
     try:
         with checking([(DK, "decode", check_decode), (fp, "fused_pipeline", check_fused_now),
-                       (ml, "merge_lookup", check_merge_now)]) as errs:
+                       (ml, "merge_lookup", check_merge_now)]
+                      + [(mod, name, check_dict_now(name)) for mod, name in dict_kernels]) as errs:
             for q in QUERIES:
                 got = oo.query(q)
                 ooc_modes[q] = oo.report().modes()
                 same_items(got, refs10[q], f"{q} SF 10 streamed (warm)")
     finally:
         STG.ChunkedTable.chunk_device = real_chunk_device
-    launches["ooc"] = {name: getattr(mod, name).launches for mod, name in kernels_of_path}
+    launches["ooc"] = {name: getattr(mod, name).launches for mod, name in kernels_of_path + dict_kernels}
     launches["ooc"]["decode"] = DK.decode.launches
     kernel_chunks = sum(int(m.split(":")[1]) for modes_q in ooc_modes.values() for m in modes_q.values()
                         if m.startswith("streamed-kernel:"))
@@ -1122,6 +1358,7 @@ def main() -> int:
           f"and {resident_regions} resident regions")
     check(kernel_chunks > 0, "no region streamed through the fused pipeline")
     fp_err = max([fp_err] + errs["fused_pipeline"])
+    hb_err = max([hb_err] + errs["hash_build"])
     print(f"every decode launch equals its plain twin bit for bit ({len(errs['decode'])} launches); "
           f"fused launches within the tolerance (max |kernel-plain| {max(errs['fused_pipeline'] + [0.0]):.4g})")
     del errs
@@ -1229,10 +1466,17 @@ def main() -> int:
               f"bound {regions[-1]['bound_ms']:.4f} ms")
     del fused_rows, dec_groups
 
-    # -- 11. the kernels' line --------------------------------------------------
+    # -- 11. the installation stage, then TPC-H SF 1 under the learned Δ -------
+    inst = install_phase(torch, dev, refs, walls, os.path.dirname(os.path.abspath(__file__)))
+    launches.update(inst["launches"])
+    fp_err, hb_err = max(fp_err, inst["fp_err"]), max(hb_err, inst["hb_err"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 12. the kernels' line --------------------------------------------------
     fa8k = lm["fa_rows"][0]
     total = {name: sum(path.get(name, 0) for path in launches.values())
-             for name in [name for _, name in kernels_of_path] + ["decode", "flash_attention"]}
+             for name in [name for _, name in kernels_of_path] + ["decode", "flash_attention"] + dict_names}
 
     def entry(name, source, replaces, rows, err, library_ms):
         nbytes = sum(r["bytes"] for r in rows)
@@ -1264,6 +1508,14 @@ def main() -> int:
          "max_abs_err": lm["fa_err"], "ms": fa8k["ms"], "plain_ms": fa8k["plain_ms"], "bound_ms": fa8k["bound_ms"],
          "bound_by": "bytes" if fa8k["bytes"] / HBM_BYTES_PER_S >= fa8k["ops"] / BF16_OPS_PER_S else "operations",
          "library_ms": fa8k["library_ms"]},
+        # TPC-H SF 1's largest dictionary: 6,000,000 lineitem probes into / a build of 1,500,000 orderkeys
+        entry("hash_probe", "src/repro_torch/kernels/csrc/hash_probe.cu", "src/repro/kernels/hash_probe.py:75",
+              [inst["rows"]["hash_probe"]], 0.0, None),
+        entry("sorted_lookup", "src/repro_torch/kernels/csrc/sorted_lookup.cu",
+              "src/repro/kernels/sorted_lookup.py:51", [inst["rows"]["sorted_lookup"]], 0.0,
+              inst["rows"]["sorted_lookup"]["library_ms"]),
+        entry("hash_build", "src/repro_torch/kernels/csrc/hash_build.cu", "src/repro/kernels/hash_build.py:83",
+              [inst["rows"]["hash_build"]], hb_err, None),
     ]
     print(json.dumps({"regions": regions, "merge_lookups": ml_rows, "segment_reduce": sr_row,
                       "warm_query_ms": {q: walls[q] * 1e3 for q in QUERIES},
@@ -1279,7 +1531,8 @@ def main() -> int:
                       "ooc_idle_share": ooc_profile["device_idle_share"],
                       "ooc_h2d_pinned": ooc_profile.get("h2d_pinned"),
                       "ooc_h2d_pageable": ooc_profile.get("h2d_pageable"),
-                      "lm": {k: v for k, v in lm.items() if k not in ("forward_profile", "decode_profile")}}))
+                      "lm": {k: v for k, v in lm.items() if k not in ("forward_profile", "decode_profile")},
+                      "install": {k: v for k, v in inst.items() if k not in ("fp_err", "hb_err")}}))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,

@@ -9,11 +9,16 @@ The public entry point mirrors ``repro``'s::
     result = session.query("q18", threshold=200)
     print(session.report().summary())
 
+The installation stage learns the card's own dictionary cost model Δ::
+
+    model = repro_torch.costmodel.install()               # profile, train, store
+    session = repro_torch.connect(db, delta=model)
+
 Entry points run on the card unless the caller names another device
 (``device="cpu"``): the CPU path runs every kernel's plain PyTorch twin.
 """
 
-__all__ = ["connect", "Session"]
+__all__ = ["connect", "Session", "costmodel"]
 
 
 def __getattr__(name):
@@ -22,4 +27,8 @@ def __getattr__(name):
         from repro_torch import session as _session
 
         return getattr(_session, name)
+    if name == "costmodel":
+        import importlib
+
+        return importlib.import_module("repro_torch.costmodel")
     raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

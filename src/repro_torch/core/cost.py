@@ -6,7 +6,7 @@ Combines three ingredients, exactly as the paper does:
   selectivities, physical orderedness of inputs;
 * **Δ** (``DictCostModel`` protocol) — per-operation dictionary costs.  The
   production Δ is *learned* from installation-stage profiling
-  (the reference's ``repro.costmodel``, not ported yet); ``AnalyticCostModel`` below is a closed-form fallback
+  (``repro_torch.costmodel``); ``AnalyticCostModel`` below is a closed-form fallback
   used by unit tests and as a sanity prior;
 * **Γ** (``Gamma``) — the runtime context threaded through the rules:
   accumulated invocation count ``Γ_calls``, path probability ``Γ_cond``, and
@@ -120,7 +120,7 @@ class AnalyticCostModel:
     """Closed-form Δ with plausible big-O shapes and table-driven constants.
 
     Used by unit tests and as the pre-installation prior; the learned model
-    (the reference's ``repro.costmodel.store.load_model``) replaces it after profiling.
+    (``repro_torch.costmodel.load_model``) replaces it after profiling.
     ``constants`` selects the leading coefficients: ``"prior"`` (hand-set
     plausible values — the default, stable for unit tests) or
     ``"calibrated"`` (fitted from the measured sweep), or an explicit

@@ -331,13 +331,23 @@ def _block_index(keys: torch.Tensor, block: int) -> torch.Tensor:
     return keys[: nb * block].reshape(nb, block).amax(dim=1)
 
 
-def sorted_lookup(table: SortedTable, qs: torch.Tensor):
-    """Vectorized binary search (the PAD tail keeps it in range)."""
-    C = table.keys.shape[0]
-    idx = torch.searchsorted(table.keys, qs.to(torch.int32), side="left")
+def sorted_lookup(keys: torch.Tensor, vals: torch.Tensor, qs: torch.Tensor):
+    """Vectorized binary search of ``qs`` in the sorted ``keys`` (the PAD
+    tail keeps it in range); misses give zero rows of ``vals``."""
+    C = keys.shape[0]
+    idx = torch.searchsorted(keys, qs.to(torch.int32), side="left")
     idx = torch.clamp(idx, max=C - 1)
-    found = table.keys[idx] == qs
-    return gather_rows(table.vals, idx, found), found
+    found = keys[idx] == qs
+    return gather_rows(vals, idx, found), found
+
+
+def mask_rows(vals: torch.Tensor, found: torch.Tensor, valid: Optional[torch.Tensor]):
+    """A lookup's ``(vals, found)`` with the probe rows outside ``valid``
+    turned into misses (zero rows)."""
+    if valid is None:
+        return vals, found
+    found = found & valid.to(torch.bool)
+    return torch.where(found[:, None], vals, torch.zeros((), dtype=vals.dtype, device=vals.device)), found
 
 
 def blocked_lookup(table: SortedTable, qs: torch.Tensor, block: int):

@@ -1,9 +1,12 @@
 """``ht_linear`` — open-addressing hash dictionary with linear probing.
 
 The PyTorch twin of ``repro.dicts.ht_linear``: one multiplicative hash,
-probe sequence ``h(k), h(k)+1, ...`` (mod C), whole-batch rounds.  The CUDA
-fused-pipeline kernel probes and accumulates the same layout
-(``kernels/csrc/dicts.cuh``: ``ht_linear_find`` / ``acc_insert``).
+probe sequence ``h(k), h(k)+1, ...`` (mod C).  ``lookup`` and the all-sum
+``build`` go through ``kernels.ops`` (``hash_probe``, ``hash_build``): the
+hand-written kernels on the card, on the CPU their plain twins, the
+whole-batch rounds of ``dicts.base``.  The CUDA fused-pipeline kernel probes
+and accumulates the same layout (``kernels/csrc/fused_pipeline.cuh``:
+``find_hash<0>`` / ``acc_slot<0>``).
 """
 from __future__ import annotations
 
@@ -35,6 +38,17 @@ def empty(capacity: int, arity: int = 1, ops=None, device="cpu") -> HashTable:
 
 def build(ks, vs, capacity: int, *, assume_sorted: bool = False, valid=None, ops=None) -> HashTable:
     del assume_sorted  # hash tables are order-insensitive (paper §4.1)
+    if base.all_sum(ops):
+        from repro_torch.kernels import ops as kops  # lazy: the kernels' twins import dicts.base
+
+        vs = vs[:, None] if vs.dim() == 1 else vs
+        tk, tv = kops.hash_build(
+            ks.to(torch.int32), vs.to(torch.float32), capacity=capacity, max_probes=MAX_PROBES,
+            valid=None if valid is None else valid.to(torch.bool),
+        )
+        # a kernel-built table has no recorded probe depth: the family's bound
+        # is exact, since every lookup stops at its key or an EMPTY slot
+        return HashTable(tk, tv, MAX_PROBES - 1)
     arity = 1 if vs.dim() == 1 else vs.shape[-1]
     t = base.generic_insert(
         empty(capacity, arity, ops, ks.device), ks, vs, _probe(capacity),
@@ -53,9 +67,10 @@ def update_add(table: HashTable, ks, vs, *, assume_sorted: bool = False, valid=N
 
 def lookup(table: HashTable, qs, *, assume_sorted: bool = False, valid=None):
     del assume_sorted
-    return base.generic_lookup(
-        table, qs, _probe(table.capacity), MAX_PROBES, valid=valid
-    )
+    from repro_torch.kernels import ops as kops  # lazy: the kernels' twins import dicts.base
+
+    vals, found = kops.hash_probe(table.keys, table.vals, qs.to(torch.int32), max_probes=MAX_PROBES)
+    return base.mask_rows(vals, found, valid)
 
 
 items = base.hash_items

@@ -2,8 +2,10 @@
 
 The PyTorch twin of ``repro.dicts.st_sorted``.  Build = sort + duplicate
 aggregation, the sort skipped when the input is known ordered (the paper's
-hinted insert).  Lookup = binary search; ordered probe streams go through
-the merge-lookup kernel (``kernels/ops.merge_lookup``).
+hinted insert).  Lookup = binary search through ``kernels.ops.sorted_lookup``
+(the hand-written kernel on the card, its plain twin on the CPU); ordered
+probe streams go through the merge-lookup kernel (``kernels/ops.merge_lookup``,
+called by the engine).
 """
 from __future__ import annotations
 
@@ -29,11 +31,11 @@ def update_add(table: SortedTable, ks, vs, *, assume_sorted: bool = False, ops=N
 
 
 def lookup(table: SortedTable, qs, *, assume_sorted: bool = False, valid=None):
-    vals, found = base.sorted_lookup(table, qs)
-    if valid is not None:
-        found = found & valid.to(torch.bool)
-        vals = torch.where(found[:, None], vals, torch.zeros((), dtype=vals.dtype, device=vals.device))
-    return vals, found
+    del assume_sorted  # hinted probes reach the merge lookup through the engine
+    from repro_torch.kernels import ops as kops  # lazy: the kernels' twins import dicts.base
+
+    vals, found = kops.sorted_lookup(table.keys, table.vals, qs.to(torch.int32))
+    return base.mask_rows(vals, found, valid)
 
 
 items = base.sorted_items

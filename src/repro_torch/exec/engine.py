@@ -118,10 +118,7 @@ def lookup_dict(d: DictResult, queries, valid=None, sorted_probes: bool = False)
     queries = queries.to(torch.int32)
     if d.ds.startswith("st") and sorted_probes:
         vals, found = kops.merge_lookup(d.table.keys, d.table.vals, queries)
-        if valid is not None:
-            found = found & valid.to(torch.bool)
-            vals = torch.where(found[:, None], vals, _zero(vals))
-        return vals, found
+        return dbase.mask_rows(vals, found, valid)
     return registry.get(d.ds).lookup(d.table, queries, valid=valid)
 
 

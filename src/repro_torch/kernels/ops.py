@@ -4,7 +4,24 @@
 Policy: a CUDA tensor goes to the hand-written kernel, a CPU tensor to its
 plain PyTorch twin; the kernels' own structural preconditions (the same
 rules as the reference) route to the plain definitions of ``ref`` on either
-device.
+device.  Nothing routes on a failure: a kernel that does not build or launch
+raises.
+
+The dictionary families reach the dictionary kernels through this module,
+by structural rules alone:
+
+* ``ht_linear.lookup`` → :func:`hash_probe` (bound ``ht_linear.MAX_PROBES``);
+  the family applies its ``valid`` mask to the result;
+* ``st_sorted.lookup`` → :func:`sorted_lookup`, in any probe order (the
+  engine sends hinted, non-decreasing probes to :func:`merge_lookup`);
+* ``ht_linear.build`` with all-sum lanes → :func:`hash_build` with
+  ``max_probes=ht_linear.MAX_PROBES``, the family's own bound, so it drops
+  no row the plain build would place.
+
+These stay on the plain path on either device: builds with min/max lanes
+(the reference kernel sums only), ``update_add`` (the kernel starts from an
+empty table, as the reference's does), and ``ht_twochoice`` and
+``st_blocked`` (no reference kernel).
 """
 from __future__ import annotations
 
@@ -14,9 +31,35 @@ import torch
 
 from . import decode as _dk
 from . import flash_attention as _fa
+from . import hash_build as _hb
+from . import hash_probe as _hp
 from . import merge_lookup as _ml
 from . import ref
 from . import segment_reduce as _sr
+from . import sorted_lookup as _sl
+
+
+def hash_probe(table_keys, table_vals, queries, max_probes: int = _hp.MAX_PROBES) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(vals [n, V], found [n])`` of ``queries`` in a linear-probe table
+    (``C`` a power of two); misses give zero rows.  The kernel on CUDA
+    tensors, its twin on CPU tensors."""
+    return _hp.hash_probe(table_keys, table_vals, queries, max_probes)
+
+
+def sorted_lookup(table_keys, table_vals, queries) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(vals [n, V], found [n])`` of ``queries`` (any order) in a sorted,
+    PAD-tailed key array.  The kernel on CUDA tensors, its twin on CPU
+    tensors."""
+    return _sl.sorted_lookup(table_keys, table_vals, queries)
+
+
+def hash_build(keys, vals, *, capacity: int, max_probes: int = _hb.MAX_PROBES,
+               valid=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(table_keys [C], table_vals [C, V])``: an empty linear-probe table
+    of ``capacity`` slots with ``vals [N, V]`` summed per key (rows where
+    ``valid``); rows pending after ``max_probes`` slots are dropped.  The
+    kernel on CUDA tensors, its twin on CPU tensors."""
+    return _hb.hash_build(keys, vals, capacity, max_probes, valid)
 
 
 def merge_lookup(table_keys, table_vals, queries) -> Tuple[torch.Tensor, torch.Tensor]:

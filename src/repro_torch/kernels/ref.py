@@ -6,9 +6,32 @@ from typing import Tuple
 
 import torch
 
+from . import hash_build as _hb
+from . import hash_probe as _hp
 from .decode import decode_plain
+from .hash_build import hash_build_plain
+from .hash_probe import hash_probe_plain
 from .merge_lookup import merge_lookup_plain
 from .segment_reduce import segment_reduce_plain
+from .sorted_lookup import sorted_lookup_plain
+
+
+def hash_probe(table_keys, table_vals, queries, max_probes: int = _hp.MAX_PROBES) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Linear probing from ``hash1(q)`` until the key or EMPTY, at most
+    ``max_probes`` slots (covers ``ht_linear``'s build chains); misses give
+    zero rows."""
+    return hash_probe_plain(table_keys, table_vals, queries, max_probes)
+
+
+def sorted_lookup(table_keys, table_vals, queries) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lower bound, clamped to ``C - 1``, compare, gather; any probe order."""
+    return sorted_lookup_plain(table_keys, table_vals, queries)
+
+
+def hash_build(keys, vals, capacity: int, max_probes: int = _hb.MAX_PROBES, valid=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Round-based insert-aggregate (``dicts.base.generic_insert``) into an
+    empty linear-probe table; rows pending after ``max_probes`` are dropped."""
+    return hash_build_plain(keys, vals, capacity, max_probes, valid)
 
 
 def merge_lookup(table_keys, table_vals, queries) -> Tuple[torch.Tensor, torch.Tensor]:

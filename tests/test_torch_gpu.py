@@ -17,7 +17,10 @@ bit for bit against its twin, and a small out-of-core session streams
 lineitem through it.  The flash-attention kernel runs bfloat16 and float32
 at the shapes ``chip_smoke.py`` gives it (MHA, GQA, MQA, a window, unaligned
 lengths, Tq < Tk, Tq > Tk, non-causal, strided head splits), and a reduced
-llama forward on the card launches it once per layer.
+llama forward on the card launches it once per layer.  The dictionary
+kernels (hash probe, sorted lookup, hash build) run against their twins at
+small and TPC-H SF 0.01 shapes, through the families' routes too, and the
+installation sweep's smallest cell launches all three.
 """
 import contextlib
 import dataclasses
@@ -41,8 +44,13 @@ from repro_torch.exec import engine as E
 from repro_torch.exec.queries import REGISTRY
 from repro_torch.kernels import decode as dk
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.costmodel import profile
+from repro_torch.dicts import ht_linear, st_sorted
 from repro_torch.kernels import fused_pipeline as fp
+from repro_torch.kernels import hash_build as hb
+from repro_torch.kernels import hash_probe as hp
 from repro_torch.kernels import merge_lookup as ml
+from repro_torch.kernels import sorted_lookup as sl
 from repro_torch.kernels import segment_reduce as sr
 from repro_torch.models import lm
 from repro_torch.models.registry import get_model_by_name
@@ -487,3 +495,84 @@ def test_forward_on_card_launches_the_kernel_once_per_layer(cuda, act_dtype, mon
     assert fa.flash_attention.launches == cfg.n_layers
     tol = 1e-4 if act_dtype == "float32" else 5e-2  # bf16: the CPU and the card round differently
     torch.testing.assert_close(got.float().cpu(), want.float(), rtol=tol, atol=tol)
+
+
+def _dict_case(shape, rng):
+    """(keys to build, value rows, probes) at a small shape or TPC-H SF 0.01's
+    (orderkeys of orders, lineitem's l_orderkey probes)."""
+    if shape == "sf0.01":
+        db = tpch.generate(scale=0.01, seed=7, device="cpu").tables()
+        keys = db["orders"].col("orderkey").to(torch.int32).numpy()
+        qs = db["lineitem"].col("orderkey").to(torch.int32).numpy()
+        V = 1
+    else:
+        n, V = (700, 3) if shape == "small_v3" else (5000, 1)
+        keys = rng.integers(0, 3 * n, n).astype(np.int32)
+        qs = np.concatenate([rng.integers(0, 6 * n, 2 * n), [dbase.PAD, dbase.EMPTY]]).astype(np.int32)
+    vals = rng.normal(size=(len(keys), V)).astype(np.float32)
+    return keys, vals, qs
+
+
+@pytest.mark.parametrize("shape", ["small_v1", "small_v3", "sf0.01"])
+def test_dict_kernels_match_plain(cuda, shape):
+    rng = np.random.default_rng(7)
+    keys, vals, qs = _dict_case(shape, rng)
+    k, v, q = (torch.from_numpy(a).to(cuda) for a in (keys, vals, qs))
+    cap = dbase.default_capacity(len(np.unique(keys)))
+    valid = torch.from_numpy(rng.random(len(keys)) < 0.9).to(cuda)
+    counts = [f.launches for f in (hb.hash_build, hp.hash_probe, sl.sorted_lookup)]
+    for mask in (None, valid):
+        tk, tv = hb.hash_build(k, v, cap, ht_linear.MAX_PROBES, mask)
+        pk, pv = hb.hash_build_plain(k, v, cap, ht_linear.MAX_PROBES, mask)
+        torch.cuda.synchronize()
+        _same_items(_dict_items(tk, tv), _dict_items(pk, pv))
+        for table in ((tk, tv), (pk, pv)):  # the probe finds keys in either layout
+            gv, gf = hp.hash_probe(*table, q)
+            wv, wf = hp.hash_probe_plain(*table, q)
+            assert torch.equal(gf, wf) and torch.equal(gv, wv)
+    st = st_sorted.build(k, v, cap)
+    gv, gf = sl.sorted_lookup(st.keys, st.vals, q)
+    wv, wf = sl.sorted_lookup_plain(st.keys, st.vals, q)
+    assert torch.equal(gf, wf) and torch.equal(gv, wv)
+    # a sorted key array whose length is no power of two, and an empty batch
+    odd = torch.cat([torch.sort(torch.unique(k)).values, torch.full((3,), dbase.PAD, dtype=torch.int32, device=cuda)])
+    ov = torch.randn((odd.shape[0], v.shape[1]), device=cuda)
+    assert torch.equal(sl.sorted_lookup(odd, ov, q)[0], sl.sorted_lookup_plain(odd, ov, q)[0])
+    assert sl.sorted_lookup(odd, ov, q[:0])[0].shape == (0, v.shape[1])
+    assert [f.launches for f in (hb.hash_build, hp.hash_probe, sl.sorted_lookup)] == [
+        counts[0] + 2, counts[1] + 4, counts[2] + 2]
+    # the families' routes on the card
+    t = ht_linear.build(k, v, cap)
+    assert t.max_t == ht_linear.MAX_PROBES - 1
+    _same_items(_dict_items(t.keys, t.vals), _dict_items(*hb.hash_build_plain(k, v, cap, ht_linear.MAX_PROBES)))
+    fv, ff = ht_linear.lookup(t, q, valid=q % 2 == 0)
+    assert torch.equal(ff, hp.hash_probe_plain(t.keys, t.vals, q)[1] & (q % 2 == 0))
+    assert hb.hash_build.launches == counts[0] + 3 and hp.hash_probe.launches == counts[1] + 5
+
+
+def test_dict_kernels_refuse_what_they_do_not_take(cuda):
+    k = torch.arange(8, dtype=torch.int32, device=cuda)
+    v = torch.ones((8, 1), device=cuda)
+    with pytest.raises(ValueError):
+        hb.hash_build(k, v, 100)  # capacity not a power of two
+    with pytest.raises(TypeError):
+        hb.hash_build(k.long(), v, 64)
+    with pytest.raises(ValueError):
+        hb.hash_build(k, v.cpu(), 64)
+    tk, tv = hb.hash_build(k, v, 64)
+    with pytest.raises(ValueError):
+        hp.hash_probe(tk[:48], tv[:48], k)  # capacity not a power of two
+    with pytest.raises(TypeError):
+        hp.hash_probe(tk, tv.double(), k)
+    with pytest.raises(ValueError):
+        sl.sorted_lookup(k, v, k.cpu().cuda()[None])
+    with pytest.raises(TypeError):
+        sl.sorted_lookup(k, v, k.long())
+
+
+def test_profile_cell_on_card_launches_the_dict_kernels(cuda):
+    before = [f.launches for f in (hb.hash_build, hp.hash_probe, sl.sorted_lookup)]
+    tab = profile(backends=("ht_linear", "st_sorted"), sizes=(256,), lookup_ratios=(1.0,), repeats=1, device=cuda)
+    assert len(tab.rows) == 32 and all(r.seconds > 0 for r in tab.rows)
+    after = [f.launches for f in (hb.hash_build, hp.hash_probe, sl.sorted_lookup)]
+    assert all(a > b for a, b in zip(after, before)), (before, after)
