@@ -17,8 +17,14 @@ Phases (any failure exits non-zero):
    with equal key sets;
 4. with every launch count set to 0, drive the per-query path again (the
    warm run, timed per query), print each region's mode and each kernel's
-   launches, and require >= 3 fused-pipeline launches (Q1, Q3, Q18) and
-   >= 1 merge-lookup launch (Q9);
+   launches (the fused pipeline's by mode), and require >= 3 fused-pipeline
+   launches (Q1, Q3, Q18), >= 1 merge-lookup launch (Q9), and q3's ``Agg``
+   and q18's ``Big`` recorded ``kernel-radix`` (the default fusion budget
+   radix-marks both, P = 64 on OD) with one radix launch each; then (4b)
+   print each radix region's C, P, cp and Lp, whether its partition blocks
+   were staged in shared memory or read through L2, the routing time and
+   the radix kernel's time beside the same region run unpartitioned (the
+   plan with its mark removed: result against numpy, launch timed);
 5. hold every kernel launch of that run against its plain PyTorch twin on
    the same card inputs: equal key sets / found flags, float lanes within
    the tolerance above (atomics fold float32 sums in another order), the
@@ -72,10 +78,16 @@ Phases (any failure exits non-zero):
    reference (computed meanwhile in worker processes, over the same seed's
    data generated on the host) and to the resident session's result; every
    lineitem region streams.  With the counts at 0, a warm pass: decode launches equal the
-   (chunk, non-plain column) pairs decoded, fused-pipeline launches equal
-   the chunks of the ``streamed-kernel:N`` regions plus the resident
-   regions' launches, and every launch is held against its plain twin as it
-   happens (decode bit for bit).  The decode kernel runs once more on
+   (chunk, non-plain column) pairs decoded through ``chunk_device``,
+   fused-pipeline launches equal the chunks of the ``streamed-kernel:N``
+   regions plus the resident regions' launches, every such chunk launch
+   carries the accumulator (``init=``) and some read encoded streams
+   (``encoded=``), the engine has no per-chunk merge and each
+   dictionary-terminal kernel region finalizes its accumulator once, and
+   every launch is held against its plain twin as it happens (decode bit
+   for bit; a fold against its carried state as it was before the launch).
+   Each streamed-kernel region's per-chunk launch and final build are
+   timed.  The decode kernel runs once more on
    synthetic chunks of every encoding and bit width (bit for bit), is timed
    per launch (device time: launches queued behind a sleep) and per pass
    beside its bound, the H2D rate and the overlap of uploads with compute
@@ -98,7 +110,9 @@ Phases (any failure exits non-zero):
    l_orderkey probes into / a build of the 1,500,000 orderkeys, C =
    4,194,304) beside their bounds, twins and, for the sorted lookup,
    ``searchsorted`` plus a gather;
-12. print the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+12. print the kernels' JSON line (the fused pipeline's entry with its modes:
+   launches on the main paths and the largest error per mode, and the
+   timed launches' sums), then ``{"ok": true, "device": ...}`` last.
 
 Phases 7 and 8 price merges against the card's device memory: the kernels
 read dictionaries from device memory, and the planner's default budget is
@@ -127,6 +141,9 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 RTOL, ATOL = 3e-3, 3e-2
 SCALE, SEED = 1.0, 7
 QUERIES = ("q1", "q3", "q5", "q9", "q18")
+# the regions the default fusion budget radix-marks at SF 1 (P = 64 on OD)
+RADIX_REGIONS = (("q3", "Agg"), ("q18", "Big"))
+STAGED_CP = 4096  # slots a partition when phase 4b runs those regions staged
 TPCH_MERGE = {"lineitem": 5, "orders": 4, "supplier": 2}
 N_FACT, N_DIM, ML_SEED = 84_055_817, 1_159_457, 0  # Retailer: Inventory, Weather
 OOC_SCALE = 10.0  # TPC-H SF 10: 60,000,000 lineitem rows
@@ -218,32 +235,52 @@ def bound_ms(nbytes, nops):
 
 
 def dict_arrays(keys, vals, empty):
-    """A dictionary's live keys in ascending order and their value rows."""
+    """A dictionary's live keys in ascending order and their value rows (on
+    the dictionary's device)."""
     live = keys != empty
     ks, vs = keys[live], vals[live]
     order = ks.argsort()
-    return ks[order].cpu().numpy(), vs[order].cpu().numpy()
+    return ks[order], vs[order]
+
+
+def same_dicts(got, want, empty, what):
+    """Two accumulators hold equal key sets, and value rows within the
+    tolerance (``assert_allclose``'s rule, on the device); max |err|."""
+    gk, gv = dict_arrays(*got, empty)
+    wk, wv = dict_arrays(*want, empty)
+    check(torch_equal(gk, wk), f"{what}: key sets differ from the plain twin ({gk.numel()} vs {wk.numel()} keys)")
+    if not wk.numel():
+        return 0.0
+    diff = (gv - wv).abs()
+    ok = (diff <= ATOL + RTOL * wv.abs()) | (gv == wv)
+    check(bool(ok.all()), f"{what}: values differ from the plain twin by up to {float(diff.max())}")
+    return float(diff.masked_fill(gv == wv, 0.0).max())
+
+
+def torch_equal(a, b):
+    return a.shape == b.shape and bool((a == b).all())
 
 
 @contextlib.contextmanager
 def recording(targets, distinct=False):
     """Set each wrapper's launch count to 0, then record every call of
-    ``module.name`` as ``(args, out)`` under ``calls[name]``.  With
+    ``module.name`` as ``(args, kwargs, out)`` under ``calls[name]``.  With
     ``distinct``, only the first call on each set of input tensors is kept
     (a timing loop repeats one input; the record keeps it once)."""
     calls, saved = {}, []
     for mod, name in targets:
         real = getattr(mod, name)
-        real.launches = 0
+        zero_counts(real)
         log, seen = [], set()
         calls[name] = log
 
-        def rec(*args, _real=real, _log=log, _seen=seen):
-            out = _real(*args)
+        def rec(*args, _real=real, _log=log, _seen=seen, **kw):
+            before = snapshot(kw)
+            out = _real(*args, **kw)
             key = tuple(id(a) for a in args if hasattr(a, "data_ptr"))
             if not distinct or key not in _seen:  # recorded inputs stay alive, so their ids stay theirs
                 _seen.add(key)
-                _log.append((args, out))
+                _log.append((args, before, out))
             return out
 
         setattr(mod, name, rec)
@@ -255,6 +292,30 @@ def recording(targets, distinct=False):
             setattr(mod, name, real)
 
 
+def zero_counts(fn):
+    """Set a kernel wrapper's launch counts to 0."""
+    fn.launches = 0
+    for mode in getattr(fn, "mode_launches", {}):
+        fn.mode_launches[mode] = 0
+
+
+def snapshot(kw):
+    """A call's keyword arguments as they were before it: a carried ``init``
+    accumulator is folded in place by the launch, so it is copied first."""
+    if kw.get("init") is None:
+        return kw
+    return dict(kw, init=tuple(t.clone() for t in kw["init"]))
+
+
+def fused_mode(kw):
+    """The fused pipeline's mode of a launch, for the per-mode tallies."""
+    if kw.get("radix") is not None:
+        return "radix"
+    if kw.get("init") is not None:
+        return "init+encoded" if kw.get("encoded") else "init"
+    return "encoded" if kw.get("encoded") else "resident"
+
+
 @contextlib.contextmanager
 def checking(targets):
     """Set each wrapper's launch count to 0, then hold every call of
@@ -264,12 +325,13 @@ def checking(targets):
     errs, saved = {}, []
     for mod, name, check_fn in targets:
         real = getattr(mod, name)
-        real.launches = 0
+        zero_counts(real)
         log = errs[name] = []
 
-        def rec(*args, _real=real, _log=log, _check=check_fn):
-            out = _real(*args)
-            _log.append(_check(args, out))
+        def rec(*args, _real=real, _log=log, _check=check_fn, **kw):
+            before = snapshot(kw)
+            out = _real(*args, **kw)
+            _log.append(_check(args, before, out))
             return out
 
         setattr(mod, name, rec)
@@ -281,29 +343,36 @@ def checking(targets):
             setattr(mod, name, real)
 
 
-def check_fused(torch, fp, dbase, calls, what):
-    """Every fused-pipeline launch against its plain twin; max |err|."""
+def check_fused(torch, fp, dbase, calls, what, errs=None):
+    """Every fused-pipeline launch against its plain twin; max |err| (and,
+    into ``errs``, the largest a mode)."""
     worst = 0.0
-    for args, out in calls:
+    for args, kw, out in calls:
         program = args[0]
-        want = fp.fused_pipeline_plain(*args)
+        want = fp.fused_pipeline_plain(*args, **kw)
         torch.cuda.synchronize()
         if program.out[0] == "dict":
-            gk, gv = dict_arrays(*out, dbase.EMPTY)
-            wk, wv = dict_arrays(*want, dbase.EMPTY)
-            check(np.array_equal(gk, wk), f"{what}: fused region {program.term[0]}: key sets differ from the plain twin")
-            np.testing.assert_allclose(gv, wv, rtol=RTOL, atol=ATOL, err_msg=f"{what}: fused region {program.term[0]}")
-            err = float(np.abs(gv - wv).max()) if len(wk) else 0.0
+            err = same_dicts(flat_acc(out), flat_acc(want), dbase.EMPTY,
+                             f"{what}: fused region {program.term[0]} ({fused_mode(kw)})")
         else:
             np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), rtol=RTOL, atol=ATOL)
             err = float((out - want).abs().max())
         worst = max(worst, err)
+        if errs is not None:
+            mode = fused_mode(kw)
+            errs[mode] = max(errs.get(mode, 0.0), err)
     return worst
+
+
+def flat_acc(acc):
+    """A dictionary accumulator with its partitions (if any) end to end."""
+    keys, vals = acc
+    return keys.reshape(-1), vals.reshape(keys.numel(), -1)
 
 
 def check_merge(torch, ml, calls, what):
     """Every merge-lookup launch against its plain twin: equal, bit for bit."""
-    for (keys, vals, qs), out in calls:
+    for (keys, vals, qs), _, out in calls:
         want = ml.merge_lookup_plain(keys, vals, qs)
         torch.cuda.synchronize()
         check(torch.equal(out[1], want[1]), f"{what}: merge lookup found flags differ from the plain twin")
@@ -314,7 +383,7 @@ def check_segment(torch, sr, calls, what):
     """Every segment-reduce launch against its plain twin: equal end flags,
     sums within the tolerance (the scans add in another order); max |err|."""
     worst = 0.0
-    for (keys, vals), (sums, ends) in calls:
+    for (keys, vals), _, (sums, ends) in calls:
         psums, pends = sr.segment_reduce_plain(keys, vals)
         torch.cuda.synchronize()
         check(torch.equal(ends, pends), f"{what}: segment reduce end flags differ from the plain twin")
@@ -337,19 +406,15 @@ def check_dict(torch, dbase, calls, what):
 
     worst = 0.0
     for name, twin in (("hash_probe", hp.hash_probe_plain), ("sorted_lookup", sl.sorted_lookup_plain)):
-        for args, out in calls.get(name, ()):
+        for args, _, out in calls.get(name, ()):
             want = twin(*args)
             torch.cuda.synchronize()
             check(torch.equal(out[1], want[1]), f"{what}: {name} found flags differ from the plain twin")
             check(torch.equal(out[0], want[0]), f"{what}: {name} values differ from the plain twin")
-    for args, out in calls.get("hash_build", ()):
+    for args, _, out in calls.get("hash_build", ()):
         want = hb.hash_build_plain(*args)
         torch.cuda.synchronize()
-        gk, gv = dict_arrays(*out, dbase.EMPTY)
-        wk, wv = dict_arrays(*want, dbase.EMPTY)
-        check(np.array_equal(gk, wk), f"{what}: hash build key sets differ from the plain twin")
-        np.testing.assert_allclose(gv, wv, rtol=RTOL, atol=ATOL, err_msg=f"{what}: hash build")
-        worst = max(worst, float(np.abs(gv - wv).max()) if len(wk) else 0.0)
+        worst = max(worst, same_dicts(out, want, dbase.EMPTY, f"{what}: hash build"))
     return worst
 
 
@@ -755,6 +820,7 @@ def install_phase(torch, dev, refs, walls, root):
 
     import repro_torch
     from repro_torch import costmodel as CM
+    from repro_torch.core import plan as P
     from repro_torch.costmodel import profiler as PROF
     from repro_torch.data import tpch
     from repro_torch.dicts import base as dbase
@@ -850,12 +916,20 @@ def install_phase(torch, dev, refs, walls, root):
             lmodes[q] = session.report().modes()
             same_items(got, refs[q], f"{q} (learned Δ, warm)")
     launches = out["launches"]["learned"] = {name: getattr(mod, name).launches for mod, name in targets}
+    out["mode_launches"] = dict(fp.fused_pipeline.mode_launches)
     for q in QUERIES:
         print(f"warm {q}: learned Δ {lwalls[q] * 1e3:.1f} ms, analytic Δ (phase 4) {walls[q] * 1e3:.1f} ms; "
               f"regions {lmodes[q]}")
     print(f"launches on the path under the learned Δ: {launches}")
     check(launches["fused_pipeline"] >= 1, "no fused-pipeline launch under the learned Δ")
-    out["fp_err"] = check_fused(torch, fp, dbase, calls["fused_pipeline"], "learned Δ")
+    out["fp_mode_err"] = {}
+    out["fp_err"] = check_fused(torch, fp, dbase, calls["fused_pipeline"], "learned Δ", out["fp_mode_err"])
+    # Algorithm 1 under the learned Δ puts OD on ht_linear: the regions the
+    # planner radix-marks then partition an ht_linear block
+    out["radix_marked"] = [[q, n.out, n.partitions, n.part_sym, lmodes[q].get(n.out)] for q in QUERIES
+                           for n in session.shape(q).plan.nodes if isinstance(n, P.Pipeline) and n.partitions]
+    print(f"radix-marked regions under the learned Δ (query, region, P, dictionary, mode): {out['radix_marked']}; "
+          f"fused launches by mode {out['mode_launches']}")
     check_merge(torch, ml, calls["merge_lookup"], "learned Δ")
     check_segment(torch, sr, calls["segment_reduce"], "learned Δ")
     hb_err = max(hb_err, check_dict(torch, dbase, calls, "learned Δ"))
@@ -877,9 +951,9 @@ def install_phase(torch, dev, refs, walls, root):
     tk, tv = real_hb(okeys, ones, cap, P, None)
     st = st_sorted.build(okeys, ones, cap)
     hb_err = max(hb_err, check_dict(torch, dbase, {
-        "hash_build": [((okeys, ones, cap, P, None), (tk, tv))],
-        "hash_probe": [((tk, tv, probes, P), real_hp(tk, tv, probes, P))],
-        "sorted_lookup": [((st.keys, st.vals, shuffled), real_sl(st.keys, st.vals, shuffled))],
+        "hash_build": [((okeys, ones, cap, P, None), {}, (tk, tv))],
+        "hash_probe": [((tk, tv, probes, P), {}, real_hp(tk, tv, probes, P))],
+        "sorted_lookup": [((st.keys, st.vals, shuffled), {}, real_sl(st.keys, st.vals, shuffled))],
     }, "SF 1 shapes"))
     table_bytes = cap * (4 + 4 * V)  # keys and value rows, every slot read (probe) or written (build) once
     query_bytes = n * 4 + n * (4 * V + 1)
@@ -998,47 +1072,114 @@ def main() -> int:
 
     # -- 4. the per-query path, counts from zero ----------------------------------
     stamp("4. per-query path")
-    walls, modes, per_query = {}, {}, {}
-    with recording(kernels_of_path + dict_kernels) as calls:
-        for q in QUERIES:
-            per_query[q], walls[q] = wall(torch, lambda: session.query(q))
-            modes[q] = session.report().modes()
-            same_items(per_query[q], refs[q], f"{q} (warm run)")
+    walls, modes, per_query, routes = {}, {}, {}, []
+    real_route = fp.radix_route
+
+    def route(*args):  # the radix regions' routing inputs, timed in 4b
+        routes.append(args)
+        return real_route(*args)
+
+    fp.radix_route = route
+    try:
+        with recording(kernels_of_path + dict_kernels) as calls:
+            for q in QUERIES:
+                per_query[q], walls[q] = wall(torch, lambda: session.query(q))
+                modes[q] = session.report().modes()
+                same_items(per_query[q], refs[q], f"{q} (warm run)")
+    finally:
+        fp.radix_route = real_route
     launches = {"per_query": {name: getattr(mod, name).launches for mod, name in kernels_of_path + dict_kernels}}
+    mode_launches = {"per_query": dict(real_fp.mode_launches)}
     fp_calls, ml_calls = calls["fused_pipeline"], calls["merge_lookup"]
     for q in QUERIES:
         print(f"warm {q}: {walls[q] * 1e3:.1f} ms; regions {modes[q]}")
-    print(f"launches on the per-query path: {launches['per_query']}")
+    print(f"launches on the per-query path: {launches['per_query']}; fused pipeline by mode {mode_launches['per_query']}")
     check(launches["per_query"]["fused_pipeline"] >= 3, "fewer than 3 fused-pipeline launches (Q1, Q3, Q18)")
     check(launches["per_query"]["merge_lookup"] >= 1, "no merge-lookup launch (Q9)")
     check(len(fp_calls) == launches["per_query"]["fused_pipeline"]
           and len(ml_calls) == launches["per_query"]["merge_lookup"],
           "recorded calls disagree with the launch counts")
+    for q, sym in RADIX_REGIONS:
+        check(modes[q].get(sym) == "kernel-radix", f"{q}'s {sym} ran {modes[q].get(sym)}, not kernel-radix")
+    check(mode_launches["per_query"]["radix"] == len(RADIX_REGIONS) == len(routes),
+          f"{mode_launches['per_query']['radix']} radix launches for {len(RADIX_REGIONS)} radix regions")
 
     # -- 5. every launch against its plain twin; 6. timing ---------------------
     stamp("5-6. twins and timing")
-    regions, fp_err = [], 0.0
+    regions, fp_err, fp_mode_err = [], 0.0, {}
     for call in fp_calls:
-        args = call[0]
+        args, kw, _ = call
         program = args[0]
-        err = check_fused(torch, fp, dbase, [call], "per-query")
+        err = check_fused(torch, fp, dbase, [call], "per-query", fp_mode_err)
         fp_err = max(fp_err, err)
-        nbytes, nops = fp.roofline(*args)
-        ms = timed(torch, lambda: real_fp(*args), 20)
-        plain_ms = timed(torch, lambda: fp.fused_pipeline_plain(*args), 3)
+        nbytes, nops = fp.roofline(*args, **kw)
+        ms = timed(torch, lambda: real_fp(*args, **kw), 20)
+        plain_ms = timed(torch, lambda: fp.fused_pipeline_plain(*args, **kw), 3)
         regions.append({
-            "term": program.term[0], "rows": int(args[2].shape[0]), "out": list(program.out[:4]),
-            "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": nops,
+            "term": program.term[0], "mode": fused_mode(kw), "rows": int(args[2].shape[0]),
+            "out": list(program.out[:4]), "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": nops,
             "bound_ms": bound_ms(nbytes, nops), "max_abs_err": err,
         })
-        print(f"fused region {program.term[0]} ({program.dicts and [d.ds for d in program.dicts]}): "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {regions[-1]['bound_ms']:.4f} ms, "
-              f"max |kernel-plain| {err:.4g}")
+        print(f"fused region {program.term[0]} ({program.dicts and [d.ds for d in program.dicts]}, "
+              f"{fused_mode(kw)}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{regions[-1]['bound_ms']:.4f} ms, max |kernel-plain| {err:.4g}")
+
+    # -- 4b. the radix regions beside the same regions unpartitioned ----------
+    stamp("4b. radix regions against the unpartitioned launch")
+    radix_rows = []
+    radix_calls = [(call, row) for call, row in zip(fp_calls, regions) if row["mode"] == "radix"]
+    for (q, sym), ((args, kw, _), row), rargs in zip(RADIX_REGIONS, radix_calls, routes):
+        program, dicts = args[0], args[3]
+        rd = next(d for d, spec in zip(dicts, program.dicts) if spec.part)
+        n_parts, lp = rd.slabs[0].shape
+        staged, smem = fp.radix_staging(program, dicts)
+        route_ms = timed(torch, lambda: real_route(*rargs), 5)
+        plan = session.shape(q).plan
+        flat = P.Plan(tuple(dataclasses.replace(n, partitions=0, part_sym="")
+                            if isinstance(n, P.Pipeline) and n.out == sym else n for n in plan.nodes), plan.result)
+        params = REGISTRY[q].bind_defaults({})
+
+        def run(plan):
+            return E.execute_plan(plan, session.db, sigma=session.sigma, params=params).items_np()
+
+        # the same region unpartitioned, and partitioned into blocks small
+        # enough to stage (4,096 slots: P = C / 4,096), each run cold once
+        # (its program compiles) and then warm with its launch recorded
+        fine = P.Plan(tuple(dataclasses.replace(n, partitions=rd.cp * n_parts // STAGED_CP)
+                            if isinstance(n, P.Pipeline) and n.out == sym else n for n in plan.nodes), plan.result)
+        variants = {}
+        for name, variant in (("unpartitioned", flat), ("staged", fine)):
+            run(variant)
+            with recording([(fp, "fused_pipeline")]) as vcalls:
+                got, vwall = wall(torch, lambda: run(variant))
+            same_items(got, refs[q], f"{q} with {sym} {name}")
+            vargs, vkw, vout = vcalls["fused_pipeline"][-1]
+            check(vargs[0].radix == (name == "staged"), f"{q}'s {name} {sym} launch took the wrong mode")
+            if name == "staged":
+                check(fp.radix_staging(vargs[0], vargs[3])[0], f"{q}'s {sym} at cp={STAGED_CP} was not staged")
+                fp_err = max(fp_err, check_fused(torch, fp, dbase, [(vargs, vkw, vout)], "staged radix", fp_mode_err))
+            variants[name] = (timed(torch, lambda: real_fp(*vargs, **vkw), 20), vwall)
+        radix_rows.append({
+            "query": q, "region": sym, "C": rd.cp * n_parts, "P": n_parts, "cp": rd.cp, "Lp": lp,
+            "staged": staged, "smem_bytes": smem, "rows": int(rargs[1].shape[0]), "routed_rows": row["rows"],
+            "route_ms": route_ms, "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "query_ms": walls[q] * 1e3,
+            **{f"{name}_ms": v[0] for name, v in variants.items()},
+            **{f"{name}_query_ms": v[1] * 1e3 for name, v in variants.items()},
+        })
+        print(f"{q} {sym} radix: C={rd.cp * n_parts} P={n_parts} cp={rd.cp} Lp={lp}, "
+              f"{'staged in shared memory' if staged else 'read through L2'} ({smem} B of shared memory a block); "
+              f"routing {rargs[1].shape[0]} rows {route_ms:.3f} ms, radix kernel {row['ms']:.3f} ms (bound "
+              f"{row['bound_ms']:.4f} ms, twin {row['plain_ms']:.1f} ms); the same region unpartitioned "
+              f"{variants['unpartitioned'][0]:.3f} ms, at P={rd.cp * n_parts // STAGED_CP} (cp={STAGED_CP}, staged) "
+              f"{variants['staged'][0]:.3f} ms; warm query {walls[q] * 1e3:.1f} ms radix, "
+              f"{variants['unpartitioned'][1] * 1e3:.1f} ms unpartitioned, {variants['staged'][1] * 1e3:.1f} ms staged")
+    del vcalls, routes, radix_calls
 
     check_merge(torch, ml, ml_calls, "per-query")
     hb_err = check_dict(torch, dbase, calls, "per-query")
     ml_rows = []
-    for (keys, vals, qs), _ in ml_calls:
+    for (keys, vals, qs), _, _ in ml_calls:
         ml_rows.append(merge_row(torch, ml, real_ml, keys, vals, qs, 20))
     del fp_calls, ml_calls, calls
 
@@ -1057,6 +1198,7 @@ def main() -> int:
         ex = E.cached_shared_executable(sp, session.db, sigma=session.sigma)
         outs, batch_cold = wall(torch, lambda: ex(session.db, batch_params))
     launches["tpch_batch"] = {name: getattr(mod, name).launches for mod, name in kernels_of_path + dict_kernels}
+    mode_launches["tpch_batch"] = dict(real_fp.mode_launches)
     batch_modes = ex.last_report.modes()
     print(f"TPC-H batch (cold {batch_cold:.2f}s): modes {batch_modes}; launches {launches['tpch_batch']}")
     eligible = sum(isinstance(b.pipe.stages[-1], (P.GroupBy, P.GroupJoin, P.Reduce))
@@ -1068,7 +1210,7 @@ def main() -> int:
         got = out.items_np()
         same_items(got, per_query[q], f"{q} (shared batch vs per-query)")
         same_items(got, refs[q], f"{q} (shared batch vs numpy)")
-    fp_err = max(fp_err, check_fused(torch, fp, dbase, calls["fused_pipeline"], "TPC-H batch"))
+    fp_err = max(fp_err, check_fused(torch, fp, dbase, calls["fused_pipeline"], "TPC-H batch", fp_mode_err))
     check_merge(torch, ml, calls["merge_lookup"], "TPC-H batch")
     hb_err = max(hb_err, check_dict(torch, dbase, calls, "TPC-H batch"))
     del calls, outs
@@ -1136,6 +1278,7 @@ def main() -> int:
                 batch_fused = len(calls["fused_pipeline"])
                 ml_modes = ex.last_report.modes()
     launches["indb_ml"] = {name: getattr(mod, name).launches for mod, name in kernels_of_path + dict_kernels}
+    mode_launches["indb_ml"] = dict(real_fp.mode_launches)
     for rg in sp.regions:
         for b in rg.branches:
             term = b.pipe.stages[-1]
@@ -1159,22 +1302,22 @@ def main() -> int:
 
     stamp("8. in-DB ML: kernels against their twins")
     sr_err = check_segment(torch, sr, calls["segment_reduce"], "in-DB ML")
-    fp_err = max(fp_err, check_fused(torch, fp, dbase, calls["fused_pipeline"], "covariance batch"))
+    fp_err = max(fp_err, check_fused(torch, fp, dbase, calls["fused_pipeline"], "covariance batch", fp_mode_err))
     check_merge(torch, ml, calls["merge_lookup"], "in-DB ML")
     hb_err = max(hb_err, check_dict(torch, dbase, calls, "in-DB ML"))
     stamp("8. in-DB ML: kernel times")
     cov_fused = []
-    for args, _ in calls["fused_pipeline"][:batch_fused]:
-        nbytes, nops = fp.roofline(*args)
+    for args, kw, _ in calls["fused_pipeline"][:batch_fused]:
+        nbytes, nops = fp.roofline(*args, **kw)
         cov_fused.append({"term": args[0].term[0], "out": list(args[0].out[:2]), "rows": int(args[2].shape[0]),
-                          "ms": timed(torch, lambda: real_fp(*args), 3), "bytes": nbytes, "ops": nops,
+                          "ms": timed(torch, lambda: real_fp(*args, **kw), 3), "bytes": nbytes, "ops": nops,
                           "bound_ms": bound_ms(nbytes, nops)})
         print(f"covariance fused {cov_fused[-1]['term']} {cov_fused[-1]['out']}: kernel {cov_fused[-1]['ms']:.3f} ms, "
               f"bound {cov_fused[-1]['bound_ms']:.4f} ms")
     print(json.dumps({"covariance_batch_fused": cov_fused}))
-    (mkeys, mvals, mqs), _ = calls["merge_lookup"][-1]
+    (mkeys, mvals, mqs), _, _ = calls["merge_lookup"][-1]
     ml_rows.append(merge_row(torch, ml, real_ml, mkeys, mvals, mqs, 10))
-    (skeys, svals), _ = calls["segment_reduce"][0]
+    (skeys, svals), _, _ = calls["segment_reduce"][0]
     del calls, mkeys, mvals, mqs
     gc.collect()
 
@@ -1311,7 +1454,7 @@ def main() -> int:
 
     dec_groups, fused_rows, ooc_modes = {}, {}, {}
 
-    def check_decode(args, out):
+    def check_decode(args, _kw, out):
         code, payload, rows = args
         check(torch.equal(out.view(torch.int32), DK.decode_plain(code, payload, rows).view(torch.int32)),
               f"decode {code.kind}/{code.bits} differs from its plain twin")
@@ -1320,20 +1463,31 @@ def main() -> int:
         g["bytes"] += sum(t.numel() * t.element_size() for t in payload.values()) + 4 * rows
         return 0.0
 
-    def check_fused_now(args, out):
-        err = check_fused(torch, fp, dbase, [(args, out)], "SF 10 streamed")
-        fused_rows.setdefault((args[0].term[0], int(args[2].shape[0]), args[0].out[:4]), args)
+    def check_fused_now(args, kw, out):
+        err = check_fused(torch, fp, dbase, [(args, kw, out)], "SF 10 streamed", fp_mode_err)
+        # one launch of each shape and mode is timed after the pass (a
+        # fold's carried state as it was before the launch)
+        fused_rows.setdefault((args[0].term[0], int(args[2].shape[0]), args[0].out[:4], fused_mode(kw)), (args, kw))
         return err
 
-    def check_merge_now(args, out):
-        check_merge(torch, ml, [(args, out)], "SF 10 streamed")
+    def check_merge_now(args, _kw, out):
+        check_merge(torch, ml, [(args, {}, out)], "SF 10 streamed")
         return 0.0
 
     def check_dict_now(name):
-        return lambda args, out: check_dict(torch, dbase, {name: [(args, out)]}, "SF 10 streamed")
+        return lambda args, kw, out: check_dict(torch, dbase, {name: [(args, kw, out)]}, "SF 10 streamed")
 
+    finals = []  # every accumulator the pass finalized into a dictionary
+
+    def counting_kernel_table(kr, res):
+        finals.append((kr, res))
+        return real_kernel_table(kr, res)
+
+    real_kernel_table = E._kernel_table
+    check(not hasattr(E, "_merge_dict_tables"), "the engine still has a per-chunk merge")
     sr.segment_reduce.launches = 0  # not on this path: its count must stay 0
     STG.ChunkedTable.chunk_device = counting_chunk_device
+    E._kernel_table = counting_kernel_table
     try:
         with checking([(DK, "decode", check_decode), (fp, "fused_pipeline", check_fused_now),
                        (ml, "merge_lookup", check_merge_now)]
@@ -1344,23 +1498,38 @@ def main() -> int:
                 same_items(got, refs10[q], f"{q} SF 10 streamed (warm)")
     finally:
         STG.ChunkedTable.chunk_device = real_chunk_device
+        E._kernel_table = real_kernel_table
     launches["ooc"] = {name: getattr(mod, name).launches for mod, name in kernels_of_path + dict_kernels}
     launches["ooc"]["decode"] = DK.decode.launches
+    mode_launches["ooc"] = dict(real_fp.mode_launches)
     kernel_chunks = sum(int(m.split(":")[1]) for modes_q in ooc_modes.values() for m in modes_q.values()
                         if m.startswith("streamed-kernel:"))
-    resident_regions = sum(m == "kernel-resident" for modes_q in ooc_modes.values() for m in modes_q.values())
-    print(f"launches on the out-of-core path: {launches['ooc']}; (chunk, non-plain column) pairs decoded "
-          f"{decoded_pairs[0]}; streamed-kernel chunks {kernel_chunks} + resident fused regions {resident_regions}")
+    resident_regions = sum(m in ("kernel-resident", "kernel-radix") for modes_q in ooc_modes.values()
+                           for m in modes_q.values())
+    # one finalizing build for each region that aggregates into a dictionary
+    # through the kernel, streamed or resident: none a chunk
+    dict_regions = sum(
+        isinstance(n.stages[-1], (P.GroupBy, P.GroupJoin)) and ooc_modes[q].get(n.out, "").startswith(("streamed-kernel:", "kernel-"))
+        for q in QUERIES for n in oo.shape(q).plan.nodes if isinstance(n, P.Pipeline))
+    print(f"launches on the out-of-core path: {launches['ooc']}; fused pipeline by mode {mode_launches['ooc']}; "
+          f"(chunk, non-plain column) pairs decoded {decoded_pairs[0]}; streamed-kernel chunks {kernel_chunks} + "
+          f"resident fused regions {resident_regions}; accumulators finalized {len(finals)} for {dict_regions} "
+          f"dictionary-terminal kernel regions")
     check(launches["ooc"]["decode"] == decoded_pairs[0] > 0,
           f"{launches['ooc']['decode']} decode launches for {decoded_pairs[0]} decoded (chunk, column) pairs")
     check(launches["ooc"]["fused_pipeline"] == kernel_chunks + resident_regions,
           f"{launches['ooc']['fused_pipeline']} fused launches for {kernel_chunks} streamed-kernel chunks "
           f"and {resident_regions} resident regions")
     check(kernel_chunks > 0, "no region streamed through the fused pipeline")
+    check(mode_launches["ooc"]["init"] == kernel_chunks,
+          f"{mode_launches['ooc']['init']} init= launches for {kernel_chunks} streamed-kernel chunks")
+    check(0 < mode_launches["ooc"]["encoded"] <= kernel_chunks, "no streamed-kernel chunk read an encoded stream")
+    check(len(finals) == dict_regions, f"{len(finals)} accumulators finalized for {dict_regions} kernel regions")
     fp_err = max([fp_err] + errs["fused_pipeline"])
     hb_err = max([hb_err] + errs["hash_build"])
     print(f"every decode launch equals its plain twin bit for bit ({len(errs['decode'])} launches); "
-          f"fused launches within the tolerance (max |kernel-plain| {max(errs['fused_pipeline'] + [0.0]):.4g})")
+          f"fused launches within the tolerance (max |kernel-plain| {max(errs['fused_pipeline'] + [0.0]):.4g}; "
+          f"by mode {fp_mode_err})")
     del errs
 
     stamp("10. streamed warm, timed")
@@ -1380,27 +1549,18 @@ def main() -> int:
     ooc_profile = profile_pass(torch, lambda: [oo.query(q) for q in QUERIES], 14)
     print(json.dumps({"profile_ooc": ooc_profile}))
 
-    # the per-chunk fold of each streamed-kernel region: one merge of a
-    # chunk's partial into a half-full state at the region's capacity
-    merge_rows = []
-    for q in QUERIES:
-        for node in oo.shape(q).plan.nodes:
-            if not (isinstance(node, P.Pipeline) and ooc_modes[q].get(node.out, "").startswith("streamed-kernel:")):
-                continue
-            term, var = node.stages[-1], node.stages[0].var
-            ds = term.choice.ds
-            cap = E._stream_capacity(E.Frame({var: ct}, (var,), {var: "lineitem"}), term.keyexpr, ds, oo.sigma, ct.nrows)
-            V = len(term.values) if isinstance(term, P.GroupBy) else 1
-            live = torch.arange(cap // 2, dtype=torch.int32, device=dev) * 7 + 3
-            vals = torch.ones((live.shape[0], V), device=dev)
-            state = E.build_dict(ds, live, vals, cap).table
-            partial = E.build_dict(ds, live[:OOC_CHUNK_ROWS], vals[:OOC_CHUNK_ROWS], cap).table
-            ms = timed(torch, lambda: E._merge_dict_tables(ds, state, partial, cap), 3)
-            merge_rows.append({"query": q, "region": node.out, "family": ds, "capacity": cap, "V": V, "ms": ms,
-                               "chunks": ct.n_chunks, "pass_ms": ms * ct.n_chunks})
-            print(f"{q} {node.out} [{ds}] per-chunk merge at capacity {cap}: {ms:.2f} ms, x {ct.n_chunks} chunks "
-                  f"= {ms * ct.n_chunks / 1e3:.2f} s a pass")
-            del state, partial, live, vals
+    # each streamed-kernel region's fold ends in ONE build of its carried
+    # accumulator (the per-chunk launches are timed with the other chunks)
+    fold_rows = []
+    for kr, res in finals:
+        if not kr.program.enc:
+            continue  # a resident region's accumulator
+        build_ms = timed(torch, lambda: real_kernel_table(kr, res), 3)
+        fold_rows.append({"region": kr.term.out, "family": kr.acc_ds, "out": list(kr.program.out[:4]),
+                          "capacity": int(res[0].shape[0]), "chunks": ct.n_chunks, "final_build_ms": build_ms})
+        print(f"{kr.term.out} [{kr.acc_ds}] streamed fold: one finalizing build of the {res[0].shape[0]}-slot "
+              f"accumulator {build_ms:.2f} ms a pass")
+    del finals
     torch.cuda.empty_cache()
 
     stamp("10. H2D rate, decode kernel")
@@ -1454,16 +1614,26 @@ def main() -> int:
     print(f"decode kernel bit for bit against its twin on {synth} synthetic chunks (bitpack 1/2/4/8/16, FOR, "
           f"dict int32/float32, RLE int32/float32)")
 
-    for key, args in fused_rows.items():
+    for key, (args, kw) in fused_rows.items():
         if key[1] != OOC_CHUNK_ROWS:  # the resident regions' shapes are not streamed chunks
             continue
-        nbytes, nops = fp.roofline(*args)
-        ms = timed(torch, lambda: real_fp(*args), 10)
-        plain_ms = timed(torch, lambda: fp.fused_pipeline_plain(*args), 3)
-        regions.append({"term": key[0], "rows": key[1], "out": list(key[2]), "ms": ms, "plain_ms": plain_ms,
-                        "bytes": nbytes, "ops": nops, "bound_ms": bound_ms(nbytes, nops), "streamed_chunk": True})
-        print(f"streamed fused chunk {key[0]} {list(key[2])}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        nbytes, nops = fp.roofline(*args, **kw)
+        # an init= launch folds into the recorded state again each call: the
+        # same work, with every key of the chunk already claimed after the first
+        ms = timed(torch, lambda: real_fp(*args, **kw), 10)
+        plain_ms = timed(torch, lambda: fp.fused_pipeline_plain(*args, **kw), 3)
+        regions.append({"term": key[0], "mode": key[3], "rows": key[1], "out": list(key[2]), "ms": ms,
+                        "plain_ms": plain_ms, "bytes": nbytes, "ops": nops, "bound_ms": bound_ms(nbytes, nops),
+                        "streamed_chunk": True, "encoded_columns": sorted(kw.get("encoded", {}))})
+        for fold in fold_rows:
+            if fold["out"] == list(key[2]):
+                fold.update(chunk_ms=ms, pass_ms=ms * fold["chunks"] + fold["final_build_ms"])
+        print(f"streamed fused chunk {key[0]} {list(key[2])} ({key[3]}, encoded columns "
+              f"{sorted(kw.get('encoded', {}))}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"bound {regions[-1]['bound_ms']:.4f} ms")
+    for fold in fold_rows:
+        print(f"{fold['region']} fold a pass: {fold['chunks']} launches of {fold.get('chunk_ms', float('nan')):.3f} ms "
+              f"+ one build of {fold['final_build_ms']:.2f} ms")
     del fused_rows, dec_groups
 
     # -- 11. the installation stage, then TPC-H SF 1 under the learned Δ -------
@@ -1490,9 +1660,25 @@ def main() -> int:
             "library_ms": library_ms,
         }
 
+    # the fused pipeline's modes: launches on the main paths, the largest
+    # |kernel - twin|, and the timed launches' sums (a radix launch counts
+    # its routed rows; init and encoded launches are SF 10 chunk folds)
+    mode_launches["learned"] = inst["mode_launches"]
+    for mode, err in inst["fp_mode_err"].items():
+        fp_mode_err[mode] = max(fp_mode_err.get(mode, 0.0), err)
+    fp_modes = {}
+    for mode in ("resident", "radix", "init", "encoded"):
+        rows = [r for r in regions if mode in r["mode"].split("+")]
+        nbytes, nops = sum(r["bytes"] for r in rows), sum(r["ops"] for r in rows)
+        fp_modes[mode] = {
+            "launches": sum(path.get(mode, 0) for path in mode_launches.values()),
+            "max_abs_err": max((e for m, e in fp_mode_err.items() if mode in m.split("+")), default=0.0),
+            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": bound_ms(nbytes, nops), "timed_launches": len(rows),
+        }
     kernels = [
-        entry("fused_pipeline", "src/repro_torch/kernels/csrc/fused_kernels.cuh",
-              "src/repro/kernels/fused_pipeline.py:388", regions, fp_err, None),
+        dict(entry("fused_pipeline", "src/repro_torch/kernels/csrc/fused_kernels.cuh",
+                   "src/repro/kernels/fused_pipeline.py:388", regions, fp_err, None), modes=fp_modes),
         entry("merge_lookup", "src/repro_torch/kernels/csrc/merge_lookup.cu",
               "src/repro/kernels/merge_lookup.py:93", ml_rows, 0.0,
               sum(r["library_ms"] for r in ml_rows)),
@@ -1526,13 +1712,14 @@ def main() -> int:
                       "ooc_warm_ms": {q: ooc_warm[q] * 1e3 for q in QUERIES},
                       "ooc_resident_warm_ms": {q: res_warm[q] * 1e3 for q in QUERIES},
                       "ooc_peak_bytes": ooc_peak, "ooc_before_bytes": ooc_before,
-                      "ooc_resident_peak_bytes": res_peak, "ooc_resident_before_bytes": res_before, "ooc_merges": merge_rows,
+                      "ooc_resident_peak_bytes": res_peak, "ooc_resident_before_bytes": res_before, "ooc_folds": fold_rows,
+                      "radix_regions": radix_rows, "fused_mode_launches": mode_launches,
                       "ooc_h2d_gbs": h2d_gbs, "ooc_chunk_rows": OOC_CHUNK_ROWS, "ooc_chunking_s": chunk_s,
                       "ooc_idle_share": ooc_profile["device_idle_share"],
                       "ooc_h2d_pinned": ooc_profile.get("h2d_pinned"),
                       "ooc_h2d_pageable": ooc_profile.get("h2d_pageable"),
                       "lm": {k: v for k, v in lm.items() if k not in ("forward_profile", "decode_profile")},
-                      "install": {k: v for k, v in inst.items() if k not in ("fp_err", "hb_err")}}))
+                      "install": {k: v for k, v in inst.items() if k not in ("fp_err", "hb_err", "fp_mode_err")}}))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,

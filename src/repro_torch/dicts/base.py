@@ -404,6 +404,34 @@ def lower_bound_pow2(keys: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     return pos
 
 
+def slot_partition_plan(capacity: int, n_parts: int, overlap: int, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Slot-range partitioning of a ``capacity``-slot table into ``n_parts``
+    blocks of ``capacity//n_parts + overlap`` slots each, the overlap
+    wrapping modulo capacity (hash probe chains run past a block's end by at
+    most ``max_probes`` slots; sorted slabs use overlap 0).  Returns
+    ``(gather_idx [P, Lp], base [P])``: ``gather_idx`` maps every block
+    position to its global slot (keys and payload slabs partition through
+    the same map, so probed positions stay aligned), ``base[p]`` is the
+    global slot of block p's position 0."""
+    if capacity % n_parts:
+        raise ValueError("capacity must be a multiple of the partition count")
+    cp = capacity // n_parts
+    lp = cp + min(overlap, capacity - cp) if overlap else cp
+    base = torch.arange(n_parts, dtype=torch.int32, device=device) * cp
+    idx = (base[:, None] + torch.arange(lp, dtype=torch.int32, device=device)[None, :]) % capacity
+    return idx, base
+
+
+def block_of(keys: torch.Tensor, qs: torch.Tensor, n_parts: int) -> torch.Tensor:
+    """Key-range partition of each query over a sorted slab: the count of
+    block-leading keys (``keys[::C/P]``) <= q, minus one, clamped at 0 (a
+    sorted search over the leading keys, equal to the reference's
+    compare-count)."""
+    bounds = keys[:: keys.shape[0] // n_parts].contiguous()
+    le = torch.searchsorted(bounds, qs.to(torch.int32).contiguous(), right=True)
+    return torch.clamp(le - 1, min=0).to(torch.int32)
+
+
 def next_pow2(x: int) -> int:
     c = 1
     while c < x:

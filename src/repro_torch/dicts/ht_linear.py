@@ -83,8 +83,8 @@ SUPPORTS_HINTS = False
 # ---------------------------------------------------------------------------
 
 RESIDENT = True  # resident_find available: fused-kernel eligible
-PARTITIONABLE = True  # slot-range radix partitioning (planner capability)
-PARTITION_OVERLAP = MAX_PROBES
+PARTITIONABLE = True  # slot-range radix partitioning supported
+PARTITION_OVERLAP = MAX_PROBES  # probe chains run <= MAX_PROBES past a block
 
 
 def resident_slabs(table: HashTable) -> Tuple[torch.Tensor, ...]:
@@ -93,24 +93,42 @@ def resident_slabs(table: HashTable) -> Tuple[torch.Tensor, ...]:
     return (table.keys,)
 
 
-def resident_find(slabs, qs, *, capacity: int, max_probes: int = MAX_PROBES):
-    """Early-terminating linear probe over the whole key slab.  Returns
-    ``(slab position, found)``; position is -1 on a miss."""
+def resident_find(slabs, qs, *, capacity: int, base_slot=0, max_probes: int = MAX_PROBES):
+    """Early-terminating linear probe over a key slab.  ``capacity`` is the
+    FULL table capacity (the hash modulus); ``base_slot`` the global slot of
+    slab position 0, nonzero when probing one radix partition, whose slab
+    runs ``PARTITION_OVERLAP`` slots past the partition so chains never wrap
+    out of it (a position outside the slab reads as EMPTY, a miss).
+    Returns ``(slab position, found)``; position is -1 on a miss."""
     (tk,) = slabs
-    n = qs.shape[0]
-    h0 = base.hash1(qs, capacity).to(torch.int64)
+    n, L = qs.shape[0], tk.shape[0]
+    full = L == capacity  # the whole table: chains wrap modulo it
+    h0 = base.hash1(qs, capacity).to(torch.int64) - (0 if full else base_slot)
     active = torch.ones((n,), dtype=torch.bool, device=qs.device)
     slot_found = torch.full((n,), -1, dtype=torch.int64, device=qs.device)
     t = 0
     while t < max_probes and bool(active.any()):
-        slot = (h0 + t) & (capacity - 1)
-        cur = tk[slot]
+        slot = (h0 + t) & (capacity - 1) if full else h0 + t
+        inside = (slot >= 0) & (slot < L)
+        cur = torch.where(inside, tk[slot.clamp(0, L - 1)], EMPTY)
         hit = active & (cur == qs)
         miss = active & (cur == EMPTY)
         slot_found = torch.where(hit, slot, slot_found)
         active = active & ~hit & ~miss
         t += 1
     return slot_found, slot_found >= 0
+
+
+def partition_assign(table: HashTable, qs, n_parts: int) -> torch.Tensor:
+    """Radix partition id of each probe key: the high bits of its hash slot."""
+    return base.hash1(qs, table.capacity) // (table.capacity // n_parts)
+
+
+def partition_slabs(table: HashTable, n_parts: int):
+    """``(stacked key slabs ([P, Lp],), gather_idx [P, Lp], base [P])``; the
+    executor gathers payload slabs through the same ``gather_idx``."""
+    idx, base_slots = base.slot_partition_plan(table.capacity, n_parts, PARTITION_OVERLAP, table.keys.device)
+    return (table.keys[idx.to(torch.int64)],), idx, base_slots
 
 
 RESIDENT_ACCUMULATE = True

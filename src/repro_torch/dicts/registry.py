@@ -48,10 +48,15 @@ def resident(name: str) -> bool:
 
 
 def partitionable(name: str) -> bool:
-    """The planner's radix-partitioning capability flag.  The port runs
-    radix-marked regions unpartitioned (its kernel reads dictionaries from
-    device memory, with no residency bound), so only the flag is read."""
-    return resident(name) and bool(getattr(get(name), "PARTITIONABLE", False))
+    """True when the backend supports slot-range radix partitioning of its
+    resident slabs (``partition_assign``/``partition_slabs``), which the
+    fused kernel's radix mode runs on."""
+    mod = get(name)
+    return (
+        resident(name)
+        and bool(getattr(mod, "PARTITIONABLE", False))
+        and all(hasattr(mod, a) for a in ("partition_assign", "partition_slabs"))
+    )
 
 
 def accumulates_resident(name: str) -> bool:

@@ -49,7 +49,9 @@ def size(table: SortedTable) -> int:
 FAMILY = "sort"
 SUPPORTS_HINTS = True
 
-# Resident hooks: directory search, then the leaf.
+# Resident hooks: directory search, then the leaf.  Key-range partitions
+# slice the leaves and the directory alike (``BLOCK`` divides a partition,
+# so no leaf straddles two).
 RESIDENT = True
 PARTITIONABLE = True
 RESIDENT_ACCUMULATE = False
@@ -59,12 +61,13 @@ def resident_slabs(table: SortedTable) -> Tuple[torch.Tensor, ...]:
     return (table.keys, table.block_max)
 
 
-def resident_find(slabs, qs, *, capacity: int, max_probes: int = 0):
-    """Directory-then-leaf search.  The leaf id is the count of block
-    maxima below the query (the reference compare-counts the whole
-    directory; a lower bound over the sorted maxima gives the same id), and
-    the in-leaf offset is the count of leaf keys below the query."""
-    del capacity, max_probes
+def resident_find(slabs, qs, *, capacity: int, base_slot=0, max_probes: int = 0):
+    """Directory-then-leaf search over a whole table or one partition
+    block.  The leaf id is the count of block maxima below the query (the
+    reference compare-counts the whole directory; a lower bound over the
+    sorted maxima gives the same id), and the in-leaf offset is the count of
+    leaf keys below the query."""
+    del capacity, base_slot, max_probes
     tk, bm = slabs
     L = tk.shape[0]
     nb = bm.shape[0]
@@ -75,3 +78,17 @@ def resident_find(slabs, qs, *, capacity: int, max_probes: int = 0):
     pos = torch.clamp(base_pos + lt, max=L - 1)
     found = tk[pos] == qs
     return torch.where(found, pos, -1), found
+
+
+def partition_assign(table: SortedTable, qs, n_parts: int) -> torch.Tensor:
+    return base.block_of(table.keys, qs, n_parts)
+
+
+def partition_slabs(table: SortedTable, n_parts: int):
+    C = table.keys.shape[0]
+    cp = C // n_parts
+    if cp % BLOCK:
+        raise ValueError("partition width must be a multiple of BLOCK")
+    idx, base_slots = base.slot_partition_plan(C, n_parts, 0, table.keys.device)
+    bm = table.block_max.reshape(n_parts, cp // BLOCK)
+    return (table.keys[idx.to(torch.int64)], bm), idx, base_slots

@@ -48,7 +48,10 @@ def size(table: SortedTable) -> int:
 FAMILY = "sort"
 SUPPORTS_HINTS = True
 
-# Resident hooks: binary search over the power-of-two key slab.
+# Resident hooks: binary search over the power-of-two key slab.  Partitions
+# are key ranges: block p covers sorted positions [p*Cp, (p+1)*Cp), and a
+# query belongs to the block whose first key is its greatest lower bound (no
+# overlap: keys are unique).
 RESIDENT = True
 PARTITIONABLE = True
 RESIDENT_ACCUMULATE = False  # terminals accumulate in hash scratch, then
@@ -59,10 +62,23 @@ def resident_slabs(table: SortedTable) -> Tuple[torch.Tensor, ...]:
     return (table.keys,)
 
 
-def resident_find(slabs, qs, *, capacity: int, max_probes: int = 0):
-    """Binary search the slab; returns ``(slab position, found)``."""
-    del capacity, max_probes
+def resident_find(slabs, qs, *, capacity: int, base_slot=0, max_probes: int = 0):
+    """Binary search the slab (a whole table or one partition block alike);
+    returns ``(slab position, found)``."""
+    del capacity, base_slot, max_probes
     (tk,) = slabs
     pos = base.lower_bound_pow2(tk, qs)
     found = tk[pos] == qs
     return torch.where(found, pos, -1), found
+
+
+def partition_assign(table: SortedTable, qs, n_parts: int) -> torch.Tensor:
+    """Block whose key range holds each query: the count of block-leading
+    keys <= q, minus one (clamped: queries below the first key probe block 0
+    and miss there)."""
+    return base.block_of(table.keys, qs, n_parts)
+
+
+def partition_slabs(table: SortedTable, n_parts: int):
+    idx, base_slots = base.slot_partition_plan(table.keys.shape[0], n_parts, 0, table.keys.device)
+    return (table.keys[idx.to(torch.int64)],), idx, base_slots

@@ -9,9 +9,10 @@ capacities and results match.
 
 Fused ``Pipeline`` regions whose terminal aggregates run through the
 fused-pipeline kernel (``kernels.fused_pipeline``: the CUDA kernel on the
-card, its plain twin on the CPU); every other region runs as plain PyTorch
-on the tables' device (mode ``"xla"``, as the reference computes those
-regions in XLA outside Pallas).  Sorted-probe lookups of sort-family
+card, its plain twin on the CPU), radix-partitioned where the plan marked
+the region (``kernel-radix``); every other region runs as plain PyTorch on
+the tables' device (mode ``"xla"``, as the reference computes those regions
+in XLA outside Pallas).  Sorted-probe lookups of sort-family
 dictionaries go through the merge-lookup kernel.
 
 Shared-scan batches (``execute_shared_plan``, ``SharedExecutable``) run
@@ -24,9 +25,10 @@ Out of core (``data.storage``): a region that scans a chunked relation
 streams it — chunk i+1's encoded upload starts before chunk i is computed,
 each chunk decodes on the device through the decode kernel, and an
 aggregating terminal folds every chunk into an accumulator sized for the
-whole relation (one fused-pipeline launch per chunk where the region is
-kernel-eligible, ``streamed-kernel:N``; else the region's stages per chunk,
-``streamed:N``).  Project terminals defer into ``_PendingStream`` chains
+whole relation (where the region is kernel-eligible, one fused-pipeline
+launch per chunk carries the accumulator as ``init=`` and reads the chunk's
+encoded columns as ``encoded=`` streams, ``streamed-kernel:N``; else the
+region's stages per chunk, ``streamed:N``).  Project terminals defer into ``_PendingStream`` chains
 that downstream regions extend or spill to host memory.
 """
 from __future__ import annotations
@@ -47,6 +49,7 @@ from repro_torch.data import storage as STG
 from repro_torch.data.table import Table, to_numpy
 from repro_torch.dicts import base as dbase
 from repro_torch.dicts import registry
+from repro_torch.kernels import decode as DK
 from repro_torch.kernels import fused_pipeline as _fp
 from repro_torch.kernels import ops as kops
 from repro_torch.testing import faults as _faults
@@ -566,7 +569,8 @@ def _reduce_field(fx, frame: Frame, lookup_var, lookup_vals, lane_names, params=
 class RegionRecord:
     """Telemetry for ONE fused region, keyed by its terminal symbol.
     ``mode``: "xla" / "xla-radix-planned" (plain PyTorch region path),
-    "kernel-resident" (the fused-pipeline kernel), "shared:N", or a streamed
+    "kernel-resident" / "kernel-radix" (the fused-pipeline kernel, whole or
+    radix-partitioned), "shared:N", or a streamed
     mode — "streamed:N" (N chunks through the region's stages),
     "streamed-kernel:N" (one fused-pipeline launch per chunk),
     "streamed-chained:N", "streamed-deferred"; ``family`` is the terminal
@@ -846,7 +850,9 @@ def _param_scalar(v, device) -> torch.Tensor:
 class _KernelRegion(NamedTuple):
     """A region lowered for the fused-pipeline kernel: the program, the
     frame columns it streams (``(var, column)`` in program order), the
-    resident dictionary bundles and parameter scalars, and the terminal."""
+    resident dictionary bundles and parameter scalars, and the terminal.
+    A radix region also carries its partition count, the partitioned
+    dictionary and the LLQL key its fact rows are routed by."""
 
     program: object
     col_refs: Tuple[Tuple[str, str], ...]
@@ -855,17 +861,30 @@ class _KernelRegion(NamedTuple):
     term: object
     acc_ds: Optional[str]
     out_cap: Optional[int]
+    n_parts: int = 0
+    radix_dict: object = None  # the partitioned BuiltDict
+    radix_key: object = None
 
 
 def _kernel_pipeline(pipe, rest, f, env, refs, sigma, params, need) -> bool:
     """Run the region through the fused-pipeline kernel; returns True when
-    it ran and stored the terminal's result (see :func:`_kernel_region`)."""
-    kr = _kernel_region(rest, f, env, sigma, params, need)
+    it ran and stored the terminal's result (see :func:`_kernel_region`).
+    A region the plan marked for radix partitioning (``pipe.partitions``)
+    routes its rows by the partition key first and records
+    ``kernel-radix``."""
+    n_parts = getattr(pipe, "partitions", 0)
+    kr = _kernel_region(rest, f, env, sigma, params, need, n_parts=n_parts,
+                        radix_sym=getattr(pipe, "part_sym", "") if n_parts else "")
     if kr is None:
         return False
-    res = _kernel_launch(kr, f)
+    if kr.n_parts:
+        cols, live, radix = _radix_inputs(kr, f, params)
+        res = _fp.fused_pipeline(kr.program, cols, live, kr.dicts, kr.pvals, radix=radix)
+    else:
+        cols = [f.tables[v].col(c) for v, c in kr.col_refs]
+        res = _fp.fused_pipeline(kr.program, cols, f.primary.live_mask(), kr.dicts, kr.pvals)
     term = kr.term
-    _record_region(term.out, "kernel-resident", family=_terminal_family(term))
+    _record_region(term.out, "kernel-radix" if kr.n_parts else "kernel-resident", family=_terminal_family(term))
     if kr.acc_ds is not None:
         lanes_out = tuple(a for a, _ in term.values) if isinstance(term, P.GroupBy) else ("_0",)
         env[term.out] = BuiltDict(DictResult(kr.acc_ds, _kernel_table(kr, res)), term.choice, lanes=lanes_out)
@@ -874,39 +893,53 @@ def _kernel_pipeline(pipe, rest, f, env, refs, sigma, params, need) -> bool:
     return True
 
 
-def _kernel_launch(kr: _KernelRegion, f: Frame):
-    """One fused-pipeline launch of a lowered region over frame ``f``."""
-    cols = [f.tables[v].col(c) for v, c in kr.col_refs]
-    return _fp.fused_pipeline(kr.program, cols, f.primary.live_mask(), kr.dicts, kr.pvals)
+def _radix_inputs(kr: _KernelRegion, f: Frame, params):
+    """The region's columns and live mask routed by partition id, and the
+    radix plan.  The partition key runs through the row compiler over the
+    frame and the routing is plain torch, as the reference computes both in
+    XLA outside its kernel."""
+    kvals = as_column(compile_rowfn_frame(kr.radix_key, f.tables, params), torch.int32,
+                      f.primary.nrows, f.primary.device)
+    b = kr.radix_dict
+    part = registry.get(b.res.ds).partition_assign(b.res.table, kvals, kr.n_parts)
+    cols = {k: f.tables[v].col(c) for k, (v, c) in enumerate(kr.col_refs)}
+    routed, live, plan = _fp.radix_route(cols, f.primary.live_mask(), part, kr.n_parts, _fp.ROW_BLOCK)
+    plan = plan._replace(part_terminal=kr.program.part_terminal)
+    return [routed[k] for k in range(len(kr.col_refs))], live, plan
 
 
 def _kernel_table(kr: _KernelRegion, res):
     """The terminal dictionary's backend table from a launch's accumulator."""
     tk, tv = res
     term_ops = tuple(getattr(kr.term, "ops", ()) or ())
-    if registry.accumulates_resident(kr.acc_ds):
+    if kr.program.part_terminal:  # [P, Cacc] per-partition accumulators: flatten
+        tk = tk.reshape(-1)
+        tv = tv.reshape(tk.shape[0], -1)
+    elif registry.accumulates_resident(kr.acc_ds):
         # hash-family terminal: the accumulator IS the family's layout
         # (min/max lanes: clear the identity residue off dead slots)
         tv = dbase.finalize_dead(tk, tv, term_ops, dbase.EMPTY)
         return dbase.HashTable(tk, tv, _fp.MAX_PROBES)
-    # sort-family terminal: finalize through the family's build — keys are
-    # unique per entry, so no sums move
+    # sort-family (or partition-flattened) terminal: finalize through the
+    # family's build — keys are unique per entry, so no sums move
     kw = {} if dbase.all_sum(term_ops) else {"ops": term_ops}
     return registry.get(kr.acc_ds).build(tk, tv, kr.out_cap, valid=tk != dbase.EMPTY, **kw)
 
 
-def _kernel_region(rest, f, env, sigma, params, need) -> Optional[_KernelRegion]:
+def _kernel_region(rest, f, env, sigma, params, need, n_parts=0, radix_sym="", out_cap=None) -> Optional[_KernelRegion]:
     """Lower a region for the fused-pipeline kernel, or ``None`` when it is
     not eligible.
 
     Eligibility is structural only: an aggregating terminal, resident
     dictionary families with a CUDA find, and no probe symbol used twice.
-    The kernel reads dictionaries from device memory, so there is no
-    residency bound: radix-marked regions (``pipe.partitions``) run
-    unpartitioned over the whole dictionary, and the terminal accumulates
-    into ``out_cap`` slots.  Only the frame's column names and dtypes, its
-    relations and its row count are read, so one lowering serves every
-    chunk of a stream."""
+    The kernel reads whole dictionaries from device memory, so only a
+    radix-marked region (``n_parts`` on ``radix_sym``) partitions, as the
+    reference's does: its dictionary must be partitionable into blocks of
+    at least 256 slots, and a terminal keyed by the partition key
+    accumulates per partition into ``next_pow2(2·cp)`` slots.  Only the
+    frame's column names and dtypes, its relations and its row count are
+    read, so one lowering serves every chunk of a stream; ``out_cap`` sizes
+    a streamed terminal's accumulator for the whole relation."""
     term = rest[-1] if rest else None
     if not isinstance(term, (P.GroupBy, P.GroupJoin, P.Reduce)):
         return None
@@ -914,12 +947,13 @@ def _kernel_region(rest, f, env, sigma, params, need) -> Optional[_KernelRegion]
     if len(set(probe_builds)) != len(probe_builds):
         return None
 
-    def _resident_ok(b) -> bool:
-        return (
-            isinstance(b, BuiltDict)
-            and registry.resident(b.res.ds)
-            and b.res.ds in _fp.FAMILIES
-        )
+    def _resident_ok(b, sym) -> bool:
+        if not (isinstance(b, BuiltDict) and registry.resident(b.res.ds) and b.res.ds in _fp.FAMILIES):
+            return False
+        if sym != radix_sym:
+            return True
+        cap = registry.get(b.res.ds).resident_slabs(b.res.table)[0].shape[0]
+        return registry.partitionable(b.res.ds) and cap % n_parts == 0 and cap // n_parts >= 256
 
     dev = f.primary.device
     col_refs, col_types = [], []
@@ -938,15 +972,20 @@ def _kernel_region(rest, f, env, sigma, params, need) -> Optional[_KernelRegion]
     pnodes = {k: ("param", _fp.type_of(v.dtype), i) for i, (k, v) in enumerate(zip(pnames, pvals))}
 
     dicts, specs, stages = [], [], []
+    radix = {}  # the partitioned dictionary and the key that probes it
 
-    def add_dict(b, fv, iv) -> int:
-        dicts.append(_fp.resident_bundle(b.res.ds, b.res.table, fv, iv))
-        specs.append(_fp.DictSpec(b.res.ds, fv.shape[1], iv.shape[1]))
+    def add_dict(b, sym, fv, iv, keyexpr) -> int:
+        if sym == radix_sym:
+            dicts.append(_fp.partitioned_bundle(b.res.ds, b.res.table, fv, iv, n_parts))
+            radix.update(dict=b, key=keyexpr)
+        else:
+            dicts.append(_fp.resident_bundle(b.res.ds, b.res.table, fv, iv))
+        specs.append(_fp.DictSpec(b.res.ds, fv.shape[1], iv.shape[1], part=sym == radix_sym))
         return len(dicts) - 1
 
-    def value_dict(b) -> int:
+    def value_dict(b, sym, keyexpr) -> int:
         ks, vs, _ = b.res.arrays()
-        return add_dict(b, vs.to(torch.float32), torch.zeros((ks.shape[0], 0), dtype=torch.int32, device=dev))
+        return add_dict(b, sym, vs.to(torch.float32), torch.zeros((ks.shape[0], 0), dtype=torch.int32, device=dev), keyexpr)
 
     def lo(x):
         return lower_expr(x, scope, pnodes)
@@ -958,7 +997,7 @@ def _kernel_region(rest, f, env, sigma, params, need) -> Optional[_KernelRegion]
                 stages.append(("select", _fp.cast(lo(node.pred), "bool")))
             elif isinstance(node, P.HashProbe):
                 b = env[node.build]
-                if not (_resident_ok(b) and b.kind == "index"):
+                if not (_resident_ok(b, node.build) and b.kind == "index"):
                     return None
                 src_t = b.src
                 want = tuple(c for c in src_t.names() if c in need.get(node.inner_var, ()))
@@ -982,7 +1021,7 @@ def _kernel_region(rest, f, env, sigma, params, need) -> Optional[_KernelRegion]
                     if want_i else torch.zeros((cap, 0), dtype=torch.int32, device=dev)
                 )
                 key = _fp.cast(lo(node.keyexpr), "i32")
-                d = add_dict(b, fv, iv)
+                d = add_dict(b, node.build, fv, iv, node.keyexpr)
                 stages.append(("probe", d, key))
                 scope[node.inner_var] = {
                     **{c: ("gath", _fp.type_of(src_t.col(c).dtype), d, "f", j) for j, c in enumerate(want_f)},
@@ -995,9 +1034,9 @@ def _kernel_region(rest, f, env, sigma, params, need) -> Optional[_KernelRegion]
                 )
             elif isinstance(node, P.GroupJoin):
                 b = env[node.build]
-                if not _resident_ok(b):
+                if not _resident_ok(b, node.build):
                     return None
-                d = value_dict(b)
+                d = value_dict(b, node.build, node.keyexpr)
                 term_ir = (
                     "groupjoin", d, _fp.cast(lo(node.keyexpr), "i32"),
                     _fp.cast(lo(node.f_expr), "f32"),
@@ -1007,10 +1046,10 @@ def _kernel_region(rest, f, env, sigma, params, need) -> Optional[_KernelRegion]
                 d, key, lookup_lanes = -1, None, {}
                 if node.lookup_sym is not None:
                     b = env[node.lookup_sym]
-                    if not _resident_ok(b):
+                    if not _resident_ok(b, node.lookup_sym):
                         return None
                     lanes = b.lanes or lanes
-                    d = value_dict(b)
+                    d = value_dict(b, node.lookup_sym, node.lookup_key)
                     key = _fp.cast(lo(node.lookup_key), "i32")
                     lookup_lanes = {nm: ("gath", "f32", d, "f", j) for j, nm in enumerate(lanes)}
                 term_ir = (
@@ -1024,24 +1063,37 @@ def _kernel_region(rest, f, env, sigma, params, need) -> Optional[_KernelRegion]
         # a row expression the region program cannot hold: structurally
         # ineligible, so the region takes the plain-torch path on its device
         return None
+    if radix_sym and not radix:
+        return None  # the plan marked a partition target the region never probes
+    if radix and not set(P.needed_columns((P.Select("", "", radix["key"]),))) <= set(f.order):
+        return None  # the partition key is not computable from the streamed columns
 
     term_ops = tuple(getattr(term, "ops", ()) or ())
-    acc_ds = out_cap = None
+    acc_ds = None
+    part_terminal = False
     if isinstance(term, (P.GroupBy, P.GroupJoin)):
         acc_ds = term.choice.ds
         if acc_ds not in registry.names():
             return None
-        out_cap = _capacity(f, term.keyexpr, acc_ds, sigma)
+        out_cap = out_cap or _capacity(f, term.keyexpr, acc_ds, sigma)
         n_lanes = len(term.values) if isinstance(term, P.GroupBy) else specs[term_ir[1]].nf
         acc_family = acc_ds if registry.accumulates_resident(acc_ds) else "ht_linear"
         if acc_family not in _fp.ACC_KIND:
             return None
-        out = ("dict", acc_family, out_cap, n_lanes, term_ops)
+        acc_cap = out_cap
+        part_terminal = bool(radix) and term.keyexpr == radix["key"]
+        if part_terminal:
+            # a partition's terminal keys are among its block's live keys
+            # (<= cp + overlap <= 2·cp): 2·cp slots bound the load at ~0.5
+            acc_cap = dbase.next_pow2(2 * next(d.cp for d in dicts if d.n_parts))
+        out = ("dict", acc_family, acc_cap, n_lanes, term_ops)
     else:
         out = ("sum", len(term.fields), term_ops)
 
-    program = _fp.Program(tuple(col_types), tuple(v[1] for v in pnodes.values()), tuple(specs), tuple(stages), term_ir, out)
-    return _KernelRegion(program, tuple(col_refs), dicts, pvals, term, acc_ds, out_cap)
+    program = _fp.Program(tuple(col_types), tuple(v[1] for v in pnodes.values()), tuple(specs), tuple(stages),
+                          term_ir, out, part_terminal=part_terminal)
+    return _KernelRegion(program, tuple(col_refs), dicts, pvals, term, acc_ds, out_cap,
+                         n_parts if radix else 0, radix.get("dict"), radix.get("key"))
 
 
 # ---------------------------------------------------------------------------
@@ -1151,19 +1203,6 @@ def _sorted_stream_merge(table, keys, vals, ds, capacity, state: _SortedStreamSt
         t.vals[i] if has else torch.zeros_like(state.bv),
         has,
     )
-
-
-def _merge_dict_tables(ds, state, partial, capacity, ops=()):
-    """Merge a chunk's partial aggregate dictionary (the fused kernel's)
-    into the carried state — state entries first, same lane monoids.  The
-    rebuild is capacity-sized every chunk."""
-    sk, sv = state.keys, state.vals
-    pk, pv = partial.keys, partial.vals
-    v1 = (sk != dbase.PAD) & (sk != dbase.EMPTY)
-    v2 = (pk != dbase.PAD) & (pk != dbase.EMPTY)
-    mk = torch.cat([torch.where(v1, sk, dbase.PAD), torch.where(v2, pk, dbase.PAD)])
-    mv = torch.cat([sv, pv])
-    return build_dict(ds, mk, mv, capacity, valid=torch.cat([v1, v2]), assume_sorted=False, ops=ops).table
 
 
 def _empty_dict_state(ds: str, n_lanes: int, capacity: int, ops, device):
@@ -1335,8 +1374,7 @@ def _exec_streamed_chain(ct, segments, env, refs, sigma, allow_sorted, params):
 
     # -- the fused-pipeline kernel per chunk, where the region is eligible --
     if is_dict_term and nchunks and len(segments) == 1:
-        kstate = _empty_dict_state(term.choice.ds, n_lanes, cap, term_ops, dev) if sorted_stream else state
-        if _stream_kernel_chunks(seg0, ct, needed, kstate, cap, term_ops, env, sigma, params):
+        if _stream_kernel_chunks(seg0, ct, needed, cap, env, sigma, params):
             return
 
     # -- the region's stages per chunk --------------------------------------
@@ -1396,10 +1434,15 @@ def _exec_streamed_chain(ct, segments, env, refs, sigma, allow_sorted, params):
         refs[term.out] = total
 
 
-def _stream_kernel_chunks(seg, ct, needed, state, cap, term_ops, env, sigma, params) -> bool:
-    """One fused-pipeline launch per decoded chunk for a single-segment
-    dict terminal; each chunk's partial aggregate merges into the carried
-    state (``_merge_dict_tables``).  Returns False when the region is not
+def _stream_kernel_chunks(seg, ct, needed, cap, env, sigma, params) -> bool:
+    """One fused-pipeline launch per chunk for a single-segment dict
+    terminal, folding into ONE accumulator sized for the whole relation:
+    chunk i's launch takes the accumulator after chunk i-1 as ``init=``
+    (updated in place), and after the last chunk ``_kernel_table``
+    finalizes it once.  The region's columns that a chunk stores bitpacked,
+    frame-of-reference, dictionary or RLE encoded reach the kernel as
+    ``encoded=`` streams straight from the upload; the rest decode through
+    ``chunk_device`` as before.  Returns False when the region is not
     kernel-eligible (decided structurally, before any chunk moves); a build
     or launch failure propagates."""
     rest, var, rel = seg.rest, seg.var, seg.rel
@@ -1412,24 +1455,43 @@ def _stream_kernel_chunks(seg, ct, needed, state, cap, term_ops, env, sigma, par
         {c: torch.empty((0,), dtype=getattr(torch, ct.schema[c]), device=ct.device) for c in needed},
         ct.chunk_rows, sorted_on=ct.sorted_on,
     )
-    kr = _kernel_region(rest, Frame({var: meta}, (var,), {var: rel}), {**env, **seg.builts}, sigma, params, seg.need)
+    kr = _kernel_region(rest, Frame({var: meta}, (var,), {var: rel}), {**env, **seg.builts}, sigma, params,
+                        seg.need, out_cap=cap)
     if kr is None:
         return False
+    # a column that is encoded in any chunk is read through an encoded
+    # stream in every chunk (a plain chunk's decoded rows ride as raw), so
+    # one program serves the whole stream
+    encodable = isinstance(ct, STG.ChunkedTable)
+    enc = tuple(encodable and any(ch[c].kind in DK.KINDS for ch in ct.chunks) for _, c in kr.col_refs)
+    kr = kr._replace(program=kr.program._replace(enc=enc))
+    _, _, acc_cap, V, ops = kr.program.out
+    dev = ct.device
+    acc = (
+        torch.full((acc_cap,), dbase.EMPTY, dtype=torch.int32, device=dev),
+        torch.zeros((acc_cap, V), dtype=torch.float32, device=dev) + dbase.lane_identity_row(ops, V, dev)[None, :],
+    )
     kern_h2d = 0
     up_next = ct.upload_chunk(0, needed)
     for i in range(nchunks):
         up, up_next = up_next, (ct.upload_chunk(i + 1, needed) if i + 1 < nchunks else None)
         kern_h2d += up[1]
         _account_stream(chunks=1, h2d_bytes=up[1])
-        t_i = ct.chunk_device(i, needed, pad=True, uploaded=up[0])
-        partial = _kernel_table(kr, _kernel_launch(kr, Frame({var: t_i}, (var,), {var: rel})))
-        state = _merge_dict_tables(term.choice.ds, state, partial, cap, term_ops)
+        streams = {
+            k: DK.encoded_stream(ct.chunks[i][c], up[0][c]) for k, (_, c) in enumerate(kr.col_refs)
+            if encodable and ct.chunks[i][c].kind in DK.KINDS
+        }
+        decoded = tuple(c for k, (_, c) in enumerate(kr.col_refs) if k not in streams)
+        t_i = ct.chunk_device(i, decoded, pad=True, uploaded=up[0])
+        cols = [None if k in streams else t_i.col(c) for k, (_, c) in enumerate(kr.col_refs)]
+        acc = _fp.fused_pipeline(kr.program, cols, t_i.live_mask(), kr.dicts, kr.pvals, init=acc, encoded=streams)
+    table = _kernel_table(kr, acc)
     _record_region(
         seg.out, f"streamed-kernel:{nchunks}", family=_terminal_family(term),
         chunks=nchunks, h2d_bytes=kern_h2d, wall_s=time.perf_counter() - t_kern,
     )
     lanes = tuple(a for a, _ in term.values) if isinstance(term, P.GroupBy) else ("_0",)
-    env[term.out] = BuiltDict(DictResult(term.choice.ds, state), term.choice, lanes=lanes)
+    env[term.out] = BuiltDict(DictResult(term.choice.ds, table), term.choice, lanes=lanes)
     return True
 
 

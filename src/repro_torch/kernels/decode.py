@@ -68,6 +68,54 @@ def decode_plain(code: ColumnCode, payload: Dict[str, torch.Tensor], out_rows: i
     return (v + code.ref).to(torch.int32)  # in range by construction
 
 
+class EncodedStream(NamedTuple):
+    """One encoded column's device payload, read by the fused pipeline's
+    kernel row by row (``fused_pipeline(..., encoded=...)``): ``words`` is
+    the tile-aligned packed stream (bitpack / FOR / dict), ``values`` the
+    dictionary slab ``[d]`` or the RLE run values ``[nt, R]``, ``ends`` the
+    RLE cumulative within-tile run ends ``[nt, R]``.  ``n`` (an addition to
+    the reference's fields) is the encoded row count: a row past it reads
+    row ``n - 1``, as the decode kernel pads a short final chunk."""
+
+    kind: str  # "bitpack" | "for" | "dict" | "rle"
+    dtype: str  # decoded dtype name
+    words: Optional[torch.Tensor] = None
+    values: Optional[torch.Tensor] = None
+    ends: Optional[torch.Tensor] = None
+    bits: int = 0
+    ref: int = 0
+    block: int = 1024
+    n: int = 0
+
+
+def words_per_tile(bits: int, block: int) -> int:
+    return block // (32 // bits)
+
+
+def encoded_stream(enc, payload: Optional[Dict[str, torch.Tensor]] = None) -> EncodedStream:
+    """The kernel-facing :class:`EncodedStream` of one ``storage.EncodedColumn``
+    (``payload``: its uploaded tensors; by default the host payload)."""
+    p = payload if payload is not None else {k: torch.from_numpy(v) for k, v in enc.payload.items()}
+    if enc.kind == "rle":
+        return EncodedStream("rle", enc.dtype, values=p["values"], ends=p["ends"], block=enc.block, n=enc.n)
+    if enc.kind not in ("bitpack", "for", "dict"):
+        raise ValueError(f"no encoded stream for a {enc.kind!r} column")
+    return EncodedStream(
+        enc.kind, enc.dtype, words=p["words"], values=p.get("values"),
+        bits=enc.meta["bits"], ref=enc.meta.get("ref", 0), block=enc.block, n=enc.n,
+    )
+
+
+def stream_code(es: EncodedStream) -> ColumnCode:
+    """The decode recipe of an encoded stream."""
+    return ColumnCode(es.kind, es.dtype, es.n, es.bits, es.ref, es.block)
+
+
+def stream_payload(es: EncodedStream) -> Dict[str, torch.Tensor]:
+    """An encoded stream's tensors under their payload names."""
+    return {k: getattr(es, k) for k in ("words", "values", "ends") if getattr(es, k) is not None}
+
+
 _LIB = {}
 
 

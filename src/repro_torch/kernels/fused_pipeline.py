@@ -23,22 +23,38 @@ int`` → float32, floor ``%``) with explicit casts, and the CUDA build
 disables FMA contraction, so keys and per-row values agree bit for bit;
 only the order of the float accumulation differs (atomics).
 
+The reference's three further modes are here too:
+
+* ``radix=`` (:class:`RadixPlan`, :func:`partitioned_bundle`,
+  :func:`radix_route`): fact rows arrive routed into tile-aligned runs by
+  the partition id of their probe key, one dictionary is stacked into
+  ``[P, Lp]`` key-range (or slot-range) blocks, and each 1,024-row tile
+  probes only block ``tile_part[t]``; when the terminal aggregates by the
+  partition key its accumulator is ``[P, Cacc]`` too;
+* ``init=(keys, vals)`` seeds a dictionary terminal's accumulator with
+  carried state: one launch is one fold step of a chunked stream;
+* ``encoded=`` hands columns over compressed (bitpack, FOR, dictionary,
+  RLE) and the row function reads each row straight from its encoded words.
+
 What bounds it on an H100: device-memory traffic and, for a dictionary
 terminal, atomics on the accumulator.  The first design is right and
 simple: a thread per row in a grid-stride loop, dictionaries and payload
-slabs read from device memory through L2 (no residency bound, so the
-reference's radix partitioning — a VMEM workaround — is not needed), an
-``atomicCAS`` claim per accumulated row, ``atomicAdd`` for sum lanes and CAS
-loops for min/max — into a block-private shared-memory copy of the value
-lanes when the accumulator holds at most ``PRIV_FLOATS`` of them, flushed
-once per block — and a block reduction then one atomic per lane for a
-scalar Reduce.  Shared-memory slabs, radix locality and warp-aggregated
-atomics are later work.
+slabs read from device memory through L2, an ``atomicCAS`` claim per
+accumulated row, ``atomicAdd`` for sum lanes and CAS loops for min/max —
+into a block-private shared-memory copy of the value lanes when the
+accumulator holds at most ``PRIV_FLOATS`` of them, flushed once per block —
+and a block reduction then one atomic per lane for a scalar Reduce.  In
+radix mode a block walks a run of tiles instead and, where the partition's
+key slab (and directory) fits in shared memory (``STAGE_BYTES``), stages it
+there once per partition it meets; a larger block is read through L2 (see
+:func:`radix_staging`).  ``init=`` accumulates into the carried tensors in
+place (no copy of ``capacity·(1+V)·4`` bytes a fold step).  Warp-aggregated
+atomics and the rest of the speed work are later PRs'.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -47,8 +63,10 @@ from repro_torch.dicts import registry
 from repro_torch.dicts.ht_linear import MAX_PROBES  # the builders' probe bound
 
 from . import build
+from . import decode as DK
 
 FAMILIES = ("ht_linear", "ht_twochoice", "st_sorted", "st_blocked")
+ROW_BLOCK = 1024  # rows a radix tile holds (the reference's tile)
 ACC_KIND = {"ht_linear": 0, "ht_twochoice": 1}  # accumulator probe layouts
 #: value lanes (capacity x lanes) a block privatizes in shared memory (32 KB)
 PRIV_FLOATS = 8192
@@ -149,11 +167,13 @@ def unop(op: str, a: tuple) -> tuple:
 
 
 class DictSpec(NamedTuple):
-    """A probed dictionary in a program: its family and payload widths."""
+    """A probed dictionary in a program: its family and payload widths, and
+    whether it arrives radix-partitioned (stacked ``[P, Lp]`` blocks)."""
 
     ds: str
     nf: int  # float payload lanes
     ni: int  # int32 payload lanes
+    part: bool = False
 
 
 class Program(NamedTuple):
@@ -161,7 +181,11 @@ class Program(NamedTuple):
     ``("probe", d, key)``; ``term``: ``("groupby", key, lanes)``,
     ``("groupjoin", d, key, f)`` or ``("reduce", d | -1, key | None,
     fields)``; ``out``: ``("dict", accumulator family, capacity, V, ops)``
-    or ``("sum", V, ops)`` (``ops`` = per-lane monoids, () = all-sum)."""
+    or ``("sum", V, ops)`` (``ops`` = per-lane monoids, () = all-sum).
+    ``part_terminal``: the accumulator is partitioned too (``[P, capacity]``,
+    radix mode, terminal keyed by the partition key); ``enc``: per column,
+    whether the kernel reads it through an encoded stream (a raw tensor is
+    then passed as a stream of kind ``raw``)."""
 
     cols: Tuple[str, ...]
     params: Tuple[str, ...]
@@ -169,20 +193,86 @@ class Program(NamedTuple):
     stages: Tuple[tuple, ...]
     term: tuple
     out: tuple
+    part_terminal: bool = False
+    enc: Tuple[bool, ...] = ()
+
+    @property
+    def radix(self) -> bool:
+        return any(d.part for d in self.dicts)
 
 
 class ResidentDict(NamedTuple):
     """Runtime inputs of one probed dictionary: the family's key-side slabs
     (``resident_slabs``) and the payload slabs aligned to slab positions
-    (int build columns ride the int32 slab, exact past 2^24)."""
+    (int build columns ride the int32 slab, exact past 2^24).  With
+    ``n_parts > 0`` every array is stacked ``[P, ...]`` (the family's
+    ``partition_slabs``) and ``cp`` is the global slot stride between
+    blocks (``capacity // n_parts``)."""
 
     slabs: Tuple[torch.Tensor, ...]
-    fvals: torch.Tensor  # [C, nf] float32
-    ivals: torch.Tensor  # [C, ni] int32
+    fvals: torch.Tensor  # [C, nf] float32  ([P, Lp, nf] partitioned)
+    ivals: torch.Tensor  # [C, ni] int32  ([P, Lp, ni] partitioned)
+    n_parts: int = 0
+    cp: int = 0
+
+
+class RadixPlan(NamedTuple):
+    """Routing of the fact stream of a radix-partitioned region: built by
+    :func:`radix_route`, consumed by :func:`fused_pipeline`."""
+
+    n_parts: int
+    tile_part: torch.Tensor  # [T] int32 partition id per tile (nondecreasing)
+    visited: torch.Tensor  # [P] bool, partitions that own at least one row
+    part_terminal: bool = False  # terminal accumulator partitioned too
 
 
 def resident_bundle(ds: str, table, fvals: torch.Tensor, ivals: torch.Tensor) -> ResidentDict:
     return ResidentDict(tuple(registry.get(ds).resident_slabs(table)), fvals, ivals)
+
+
+def partitioned_bundle(ds: str, table, fvals: torch.Tensor, ivals: torch.Tensor, n_parts: int) -> ResidentDict:
+    """Radix-partitioned bundle: stacked ``[P, ...]`` slab blocks from the
+    family's ``partition_slabs``, payload slabs gathered through the same
+    slot map so probed positions stay aligned."""
+    mod = registry.get(ds)
+    slabs, gidx, _ = mod.partition_slabs(table, n_parts)
+    capacity = mod.resident_slabs(table)[0].shape[0]
+    g = gidx.to(torch.int64)
+    return ResidentDict(tuple(s.contiguous() for s in slabs), fvals[g], ivals[g], n_parts, capacity // n_parts)
+
+
+def radix_route(cols: Dict, live: torch.Tensor, part: torch.Tensor, n_parts: int, block: int = ROW_BLOCK):
+    """Route fact rows into tile-aligned partition runs.
+
+    Rows are stably ordered by partition id and scattered into a padded
+    stream where every partition starts on a tile boundary, so each tile's
+    rows probe one partition's block.  The padded length is static:
+    ``ceil(n/block) + n_parts`` tiles bound the alignment waste whatever the
+    skew; filler tiles past the last busy one ride the final partition
+    with dead rows.  Returns the routed columns (same keys), the routed
+    live mask and the :class:`RadixPlan`."""
+    n, dev = live.shape[0], live.device
+    part = part.to(torch.int64)
+    order = torch.argsort(part, stable=True)  # equal ids keep row order
+    sp = part[order]
+    counts = torch.bincount(part, minlength=n_parts)
+    tiles_per = (counts + block - 1) // block
+    tile_start = torch.cumsum(tiles_per, 0) - tiles_per  # [P] first tile
+    row_start = torch.cumsum(counts, 0) - counts  # [P] first sorted row
+    pos = tile_start[sp] * block + torch.arange(n, device=dev) - row_start[sp]
+    n_tiles = n // block + int(n % block > 0) + n_parts
+    n_pad = n_tiles * block
+    routed = {}
+    for name, a in cols.items():
+        out = torch.zeros((n_pad,), dtype=a.dtype, device=dev)
+        out[pos] = a[order]
+        routed[name] = out
+    live_r = torch.zeros((n_pad,), dtype=torch.bool, device=dev)
+    live_r[pos] = live.to(torch.bool)[order]
+    t_ids = torch.arange(n_tiles, device=dev)
+    tile_part = torch.searchsorted(tile_start, t_ids, right=True) - 1
+    tile_part = torch.clamp(tile_part, 0, n_parts - 1).to(torch.int32)
+    return routed, live_r, RadixPlan(n_parts, tile_part, counts > 0)
 
 
 def _lane_ops(ops, V: int) -> Tuple[str, ...]:
@@ -204,15 +294,23 @@ _T_BIN = {
 
 class _Rows:
     """Evaluation state of the plain twin: columns, params, the current
-    live mask and each probe's (slot, found)."""
+    live mask and each probe's (slot, found).  In radix mode ``row_part``
+    holds each row's partition and a partitioned dictionary's slots are
+    flat positions ``p * Lp + local`` into its stacked payload."""
 
-    def __init__(self, program, cols, params, dicts, live):
+    def __init__(self, program, cols, params, dicts, live, row_part=None, visited=()):
         self.p = program
         self.cols = cols
         self.params = params
         self.dicts = dicts
         self.live = live
+        self.row_part = row_part
+        self.visited = visited
         self.probes: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def payload(self, d: int, kind: str) -> torch.Tensor:
+        slab = self.dicts[d].fvals if kind == "f" else self.dicts[d].ivals
+        return slab.reshape(-1, slab.shape[-1]) if self.p.dicts[d].part else slab
 
     def ev(self, e):
         k = e[0]
@@ -229,8 +327,7 @@ class _Rows:
         if k == "gath":
             _, t, d, kind, j = e
             slot, found = self.probes[d]
-            slab = self.dicts[d].fvals if kind == "f" else self.dicts[d].ivals
-            v = dbase.gather_rows(slab[:, j : j + 1], slot, found)[:, 0]
+            v = dbase.gather_rows(self.payload(d, kind)[:, j : j + 1], slot, found)[:, 0]
             return v.to(DTYPES[t]) if kind == "f" else (v != 0 if t == "bool" else v)
         if k == "cast":
             return self._t(self.ev(e[2]), e[1])
@@ -263,19 +360,28 @@ class _Rows:
     def probe(self, d: int, key) -> torch.Tensor:
         spec, rd = self.p.dicts[d], self.dicts[d]
         q = self.column(key, "i32")
-        slot, found = registry.get(spec.ds).resident_find(
-            rd.slabs, q, capacity=rd.slabs[0].shape[0], max_probes=MAX_PROBES
-        )
+        find = registry.get(spec.ds).resident_find
+        if not spec.part:
+            slot, found = find(rd.slabs, q, capacity=rd.slabs[0].shape[0], max_probes=MAX_PROBES)
+        else:  # each visited partition's rows find against block p only
+            lp = rd.slabs[0].shape[1]
+            slot = torch.full(q.shape, -1, dtype=torch.int64, device=q.device)
+            for p in self.visited:
+                sel = self.row_part == p
+                loc, hit = find(tuple(s[p] for s in rd.slabs), q[sel], capacity=rd.n_parts * rd.cp,
+                                base_slot=p * rd.cp, max_probes=MAX_PROBES)
+                slot[sel] = torch.where(hit, p * lp + loc, -1)
+            found = slot >= 0
         self.probes[d] = (slot, found)
         self.live = self.live & found
         return found
 
 
-def _evaluate(program: Program, cols, live, dicts, params, probe_rows=None):
+def _evaluate(program: Program, cols, live, dicts, params, probe_rows=None, row_part=None, visited=()):
     """Run the stages and the terminal's row math over whole columns:
     ``(final live mask, keys or None, vals [n, V])``.  ``probe_rows``, when
     given, collects ``(dictionary, live rows probing it)`` per probe."""
-    r = _Rows(program, list(cols), list(params), list(dicts), live.to(torch.bool))
+    r = _Rows(program, list(cols), list(params), list(dicts), live.to(torch.bool), row_part, visited)
 
     def probe(d, key):
         if probe_rows is not None:
@@ -297,7 +403,7 @@ def _evaluate(program: Program, cols, live, dicts, params, probe_rows=None):
         probe(term[1], term[2])
         f_v = r.column(term[3], "f32")
         slot, found = r.probes[term[1]]
-        vals = f_v[:, None] * dbase.gather_rows(r.dicts[term[1]].fvals, slot, found)
+        vals = f_v[:, None] * dbase.gather_rows(r.payload(term[1], "f"), slot, found)
     else:
         if term[1] >= 0:
             probe(term[1], term[2])
@@ -305,19 +411,64 @@ def _evaluate(program: Program, cols, live, dicts, params, probe_rows=None):
     return r.live, keys, vals
 
 
-def fused_pipeline_plain(program: Program, cols, live, dicts, params):
+def _decoded_columns(cols, live, encoded) -> list:
+    """The program's columns with every encoded stream decoded to the
+    stream's rows (the decode kernel's plain twin: bit for bit the values
+    the kernel reads in registers)."""
+    cols = list(cols)
+    for k, es in (encoded or {}).items():
+        cols[k] = DK.decode_plain(DK.stream_code(es), DK.stream_payload(es), live.shape[0])
+    return cols
+
+
+def _radix_rows(radix, n: int):
+    """``(row partition ids [n], visited partition ids)`` of a routed stream."""
+    if radix is None:
+        return None, ()
+    if n != radix.tile_part.shape[0] * ROW_BLOCK:
+        raise ValueError(f"fused_pipeline: a radix stream holds {radix.tile_part.shape[0]} tiles of {ROW_BLOCK} rows")
+    row_part = radix.tile_part.to(torch.int64).repeat_interleave(ROW_BLOCK)
+    return row_part, tuple(torch.nonzero(radix.visited).flatten().tolist())
+
+
+def _check_modes(program: Program, radix, init, encoded) -> None:
+    _check((radix is not None) == program.radix, "a radix stream goes with a program that has a partitioned dictionary")
+    _check(radix is None or not encoded, "encoded streams are positional; radix routing moves decoded rows")
+    _check(radix is None or radix.part_terminal == program.part_terminal, "the radix plan and the program disagree on the terminal")
+    _check(init is None or (program.out[0] == "dict" and not program.part_terminal),
+           "carried state applies to a non-partitioned dictionary terminal")
+    enc = program.enc or (False,) * len(program.cols)
+    _check(all(enc[k] for k in (encoded or {})), "an encoded stream goes to a column the program reads encoded")
+
+
+def fused_pipeline_plain(program: Program, cols, live, dicts, params, *, radix=None, init=None, encoded=None):
     """The plain twin of :func:`fused_pipeline`: the same function over
-    whole columns in PyTorch (any device)."""
-    live, keys, vals = _evaluate(program, cols, live, dicts, params)
+    whole columns in PyTorch (any device).  Radix mode loops over the
+    visited partitions; ``init`` is not modified."""
+    _check_modes(program, radix, init, encoded)
+    cols = _decoded_columns(cols, live, encoded)
+    row_part, visited = _radix_rows(radix, live.shape[0])
+    live, keys, vals = _evaluate(program, cols, live, dicts, params, row_part=row_part, visited=visited)
     if program.out[0] == "dict":
         _, acc_ds, cap, V, ops = program.out
         dev = live.device
-        tk = torch.full((cap,), dbase.EMPTY, dtype=torch.int32, device=dev)
-        tv = torch.zeros((cap, V), dtype=torch.float32, device=dev) + dbase.lane_identity_row(ops, V, dev)[None, :]
+        acc = registry.get(acc_ds).resident_accumulate
         ks = torch.where(live, keys, dbase.PAD)
-        return registry.get(acc_ds).resident_accumulate(
-            tk, tv, ks, vals, live, max_probes=MAX_PROBES, ops=ops or None
-        )
+        ident = dbase.lane_identity_row(ops, V, dev)[None, :]
+        if program.part_terminal:
+            P = radix.n_parts
+            tk = torch.full((P, cap), dbase.EMPTY, dtype=torch.int32, device=dev)
+            tv = torch.zeros((P, cap, V), dtype=torch.float32, device=dev) + ident
+            for p in visited:
+                sel = row_part == p
+                tk[p], tv[p] = acc(tk[p], tv[p], ks[sel], vals[sel], live[sel], max_probes=MAX_PROBES, ops=ops or None)
+            return tk, tv
+        if init is not None:
+            tk, tv = init
+        else:
+            tk = torch.full((cap,), dbase.EMPTY, dtype=torch.int32, device=dev)
+            tv = torch.zeros((cap, V), dtype=torch.float32, device=dev) + ident
+        return acc(tk, tv, ks, vals, live, max_probes=MAX_PROBES, ops=ops or None)
     _, V, ops = program.out
     lanes = []
     for j, op in enumerate(_lane_ops(ops, V)):
@@ -355,23 +506,34 @@ def _nodes(e) -> int:
     return 1
 
 
-def roofline(program: Program, cols, live, dicts, params) -> Tuple[int, int]:
+def roofline(program: Program, cols, live, dicts, params, *, radix=None, init=None, encoded=None) -> Tuple[int, int]:
     """``(bytes, operations)`` the region needs for these inputs, for the
-    least-time bound: every streamed column, the live mask and the params
-    read once; for each probed dictionary one key and one payload row per
-    live probing row, capped at the slab sizes (what this data needs); the
-    output written once.  Operations: one per program node per row."""
+    least-time bound: every streamed column (an encoded one: its payload),
+    the live mask, the params and the tile partition ids read once; for
+    each probed dictionary one key and one payload row per live probing row,
+    capped at the slab sizes (what this data needs); the accumulator written
+    once (every slot: the launch fills it) or, when carried in (``init``),
+    each slot a live row reaches read and written once.  Operations: one per
+    program node per row."""
     probe_rows: List[Tuple[int, int]] = []
-    _evaluate(program, cols, live, dicts, params, probe_rows)
-    nbytes = sum(c.numel() * c.element_size() for c in cols) + live.numel()
+    row_part, visited = _radix_rows(radix, live.shape[0])
+    final, _, _ = _evaluate(program, _decoded_columns(cols, live, encoded), live, dicts, params, probe_rows,
+                            row_part, visited)
+    nbytes = sum(c.numel() * c.element_size() for c in cols if c is not None) + live.numel()
+    nbytes += sum(t.numel() * t.element_size() for es in (encoded or {}).values() for t in DK.stream_payload(es).values())
     nbytes += sum(p.numel() * p.element_size() for p in params)
+    if radix is not None:
+        nbytes += radix.tile_part.numel() * 4
     for d, rows in probe_rows:
         rd, spec = dicts[d], program.dicts[d]
         full = sum(t.numel() * t.element_size() for t in (*rd.slabs, rd.fvals, rd.ivals))
         nbytes += min(full, rows * 4 * (1 + spec.nf + spec.ni))
     if program.out[0] == "dict":
         _, _, cap, V, _ = program.out
-        nbytes += cap * 4 * (1 + V)
+        if init is not None:
+            nbytes += 2 * min(cap, int(final.sum())) * 4 * (1 + V)
+        else:
+            nbytes += cap * 4 * (1 + V) * (radix.n_parts if program.part_terminal else 1)
     else:
         nbytes += program.out[1] * 4
 
@@ -403,12 +565,15 @@ def _c_const(t: str, v) -> str:
 class _Emitter:
     def __init__(self, program: Program):
         self.p = program
+        self.enc = program.enc or (False,) * len(program.cols)
 
     def ex(self, e) -> str:
         k = e[0]
         if k == "const":
             return _c_const(e[1], e[2])
         if k == "col":
+            if self.enc[e[2]]:
+                return f"fp::enc_{e[1]}(a.enc[{e[2]}], i)"
             return f"(((const {_CTYPES[e[1]]}*)a.col[{e[2]}])[i])"
         if k == "param":
             return f"(*(const {_CTYPES[e[1]]}*)a.param[{e[2]}])"
@@ -418,8 +583,8 @@ class _Emitter:
             _, t, d, kind, j = e
             spec = self.p.dicts[d]
             if kind == "f":
-                return f"(a.dict[{d}].fv[(long long)s{d} * {spec.nf} + {j}])"
-            v = f"(a.dict[{d}].iv[(long long)s{d} * {spec.ni} + {j}])"
+                return f"(a.dict[{d}].fv[g{d} * {spec.nf} + {j}])"
+            v = f"(a.dict[{d}].iv[g{d} * {spec.ni} + {j}])"
             return f"({v} != 0)" if t == "bool" else v
         if k == "cast":
             return f"(({_CTYPES[e[1]]})({self.ex(e[2])}))"
@@ -453,20 +618,29 @@ class _Emitter:
             return f"floorf({x})" if t == "f32" else x
         raise ValueError(f"unknown program node {k!r}")
 
-    def find(self, d: int, q: str) -> str:
-        ds = self.p.dicts[d].ds
-        if ds == "ht_linear":
-            return f"fp::find_hash<0>(a.dict[{d}], {q}, {MAX_PROBES})"
-        if ds == "ht_twochoice":
-            return f"fp::find_hash<1>(a.dict[{d}], {q}, {MAX_PROBES})"
-        if ds == "st_sorted":
-            return f"fp::find_st_sorted(a.dict[{d}], {q})"
-        return f"fp::find_st_blocked(a.dict[{d}], {q})"
-
-    def probe(self, d: int, key) -> List[str]:
+    def find(self, d: int, q: str) -> List[str]:
+        spec = self.p.dicts[d]
+        ds = spec.ds
+        if spec.part:
+            call = {
+                "ht_linear": f"fp::find_linear_part(a.dict[{d}], pt, {q}, {MAX_PROBES})",
+                "st_sorted": f"fp::find_sorted_part(a.dict[{d}], pt, {q})",
+                "st_blocked": f"fp::find_blocked_part(a.dict[{d}], pt, {q})",
+            }.get(ds)
+            if call is None:
+                raise ValueError(f"family {ds!r} does not partition")
+            at = f"(long long)pt.p * a.dict[{d}].lp + s{d}"
+        else:
+            call = {
+                "ht_linear": f"fp::find_hash<0>(a.dict[{d}], {q}, {MAX_PROBES})",
+                "ht_twochoice": f"fp::find_hash<1>(a.dict[{d}], {q}, {MAX_PROBES})",
+                "st_sorted": f"fp::find_st_sorted(a.dict[{d}], {q})",
+            }.get(ds, f"fp::find_st_blocked(a.dict[{d}], {q})")
+            at = f"s{d}"
         return [
-            f"  const int s{d} = {self.find(d, self.ex(cast(key, 'i32')))};",
+            f"  const int s{d} = {call};",
             f"  if (s{d} < 0) return false;",
+            f"  const long long g{d} = {at};",
         ]
 
     def source(self) -> str:
@@ -474,12 +648,13 @@ class _Emitter:
         nc, npar, nd = len(p.cols), len(p.params), len(p.dicts)
         V = p.out[3] if p.out[0] == "dict" else p.out[1]
         ops = _lane_ops(p.out[-1], V)
+        rd = next((d for d, spec in enumerate(p.dicts) if spec.part), -1)
         body = ["  if (!a.live[i]) return false;"]
         for st in p.stages:
             if st[0] == "select":
                 body.append(f"  if (!({self.ex(cast(st[1], 'bool'))})) return false;")
             else:
-                body += self.probe(st[1], st[2])
+                body += self.find(st[1], self.ex(cast(st[2], "i32")))
         term = p.term
         if term[0] == "groupby":
             body.append(f"  key = {self.ex(cast(term[1], 'i32'))};")
@@ -487,23 +662,28 @@ class _Emitter:
         elif term[0] == "groupjoin":
             d = term[1]
             body.append(f"  key = {self.ex(cast(term[2], 'i32'))};")
-            body += [f"  const int s{d} = {self.find(d, 'key')};", f"  if (s{d} < 0) return false;"]
+            body += self.find(d, "key")
             body.append(f"  const float f_ = {self.ex(cast(term[3], 'f32'))};")
-            body += [
-                f"  v[{j}] = f_ * a.dict[{d}].fv[(long long)s{d} * {p.dicts[d].nf} + {j}];"
-                for j in range(V)
-            ]
+            body += [f"  v[{j}] = f_ * a.dict[{d}].fv[g{d} * {p.dicts[d].nf} + {j}];" for j in range(V)]
         else:
             if term[1] >= 0:
-                body += self.probe(term[1], term[2])
+                body += self.find(term[1], self.ex(cast(term[2], "i32")))
             body.append("  key = 0;")
             body += [f"  v[{j}] = {self.ex(cast(x, 'f32'))};" for j, x in enumerate(term[3])]
         body.append("  return true;")
 
-        launch = [
-            "  Args a;",
-            "  int p = 0, q = 0;",
-            *[f"  a.col[{k}] = ptrs[p++];" for k in range(nc)],
+        launch = ["  Args a;", "  int p = 0, q = 0;"]
+        for k in range(nc):
+            if self.enc[k]:
+                launch += [
+                    f"  a.enc[{k}].a = (const unsigned*)ptrs[p++];",
+                    f"  a.enc[{k}].b = (const unsigned*)ptrs[p++];",
+                    f"  a.enc[{k}].n = ints[q++];",
+                    *[f"  a.enc[{k}].{f} = (int)ints[q++];" for f in ("kind", "bits", "ref", "block", "runs")],
+                ]
+            else:
+                launch.append(f"  a.col[{k}] = ptrs[p++];")
+        launch += [
             "  a.live = (const bool*)ptrs[p++];",
             "  a.n = ints[q++];",
             *[f"  a.param[{k}] = ptrs[p++];" for k in range(npar)],
@@ -514,32 +694,64 @@ class _Emitter:
                 f"  a.dict[{d}].bm = (const int*)ptrs[p++];",
                 f"  a.dict[{d}].fv = (const float*)ptrs[p++];",
                 f"  a.dict[{d}].iv = (const int*)ptrs[p++];",
-                f"  a.dict[{d}].cap = (int)ints[q++];",
-                f"  a.dict[{d}].nb = (int)ints[q++];",
+                *[f"  a.dict[{d}].{f} = (int)ints[q++];" for f in ("cap", "nb", "lp", "cp", "nbp")],
                 f"  a.dict[{d}].nf = {spec.nf};",
                 f"  a.dict[{d}].ni = {spec.ni};",
             ]
-        launch += [
-            "  if (a.n == 0) return 0;",
-            "  const long long want = (a.n + 255) / 256;",
-            "  const unsigned grid = (unsigned)(want < 4224 ? want : 4224);",
-        ]
-        priv = p.out[0] == "dict" and p.out[2] * V <= PRIV_FLOATS
+        launch.append("  if (a.n == 0) return 0;")
+        if p.radix:
+            launch += [
+                "  const int* tile_part = (const int*)ptrs[p++];",
+                "  const long long n_tiles = ints[q++];",
+                "  const int tpc = (int)ints[q++];",
+                "  const bool stage = ints[q++] != 0;",
+                "  const unsigned grid = (unsigned)((n_tiles + tpc - 1) / tpc);",
+                "  const size_t slab = stage ? (size_t)(a.dict[RD].lp + a.dict[RD].nbp) * sizeof(int) : 0;",
+            ]
+        else:
+            launch += [
+                "  const long long want = (a.n + 255) / 256;",
+                "  const unsigned grid = (unsigned)(want < 4224 ? want : 4224);",
+            ]
+        priv = p.out[0] == "dict" and p.out[2] * V <= PRIV_FLOATS and not p.part_terminal
+        cu = "(cudaStream_t)stream"
         if p.out[0] == "dict":
             kind = ACC_KIND[p.out[1]]
             launch += [
                 "  int* out_keys = (int*)ptrs[p++];",
                 "  float* out_vals = (float*)ptrs[p++];",
                 "  const int cap = (int)ints[q++];",
-                "  const size_t smem = PRIV ? (size_t)cap * NV * sizeof(float) : 0;",
-                f"  fp_dict_kernel<{kind}><<<grid, 256, smem, (cudaStream_t)stream>>>"
-                f"(a, out_keys, out_vals, cap, {MAX_PROBES});",
+                "  const size_t priv = PRIV ? (size_t)cap * NV * sizeof(float) : 0;",
             ]
+            if p.radix:
+                pt = "true" if p.part_terminal else "false"
+                for stage in ("true", "false"):
+                    k = f"fp_radix_dict_kernel<{kind}, {stage}, {pt}>"
+                    launch += [
+                        f"  if (stage == {stage}) {{",
+                        f"    const cudaError_t e = cudaFuncSetAttribute({k}, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)(priv + slab));",
+                        "    if (e != cudaSuccess) return (int)e;",
+                        f"    {k}<<<grid, 256, priv + slab, {cu}>>>(a, tile_part, n_tiles, tpc, out_keys, out_vals, cap, {MAX_PROBES});",
+                        "  }",
+                    ]
+            else:
+                launch.append(
+                    f"  fp_dict_kernel<{kind}><<<grid, 256, priv, {cu}>>>(a, out_keys, out_vals, cap, {MAX_PROBES});"
+                )
         else:
-            launch += [
-                "  float* out = (float*)ptrs[p++];",
-                "  fp_sum_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(a, out);",
-            ]
+            launch.append("  float* out = (float*)ptrs[p++];")
+            if p.radix:
+                for stage in ("true", "false"):
+                    k = f"fp_radix_sum_kernel<{stage}>"
+                    launch += [
+                        f"  if (stage == {stage}) {{",
+                        f"    const cudaError_t e = cudaFuncSetAttribute({k}, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)slab);",
+                        "    if (e != cudaSuccess) return (int)e;",
+                        f"    {k}<<<grid, 256, slab, {cu}>>>(a, tile_part, n_tiles, tpc, out);",
+                        "  }",
+                    ]
+            else:
+                launch.append(f"  fp_sum_kernel<<<grid, 256, 0, {cu}>>>(a, out);")
         launch.append("  return (int)cudaGetLastError();")
         op_list = ", ".join(str(_OP_ID[o]) for o in ops)
         return "\n".join([
@@ -549,6 +761,7 @@ class _Emitter:
             "",
             "struct Args {",
             f"  const void* col[{max(nc, 1)}];",
+            f"  fp::Enc enc[{max(nc, 1)}];",
             "  const bool* live;",
             "  long long n;",
             f"  const void* param[{max(npar, 1)}];",
@@ -556,19 +769,24 @@ class _Emitter:
             "};",
             f"constexpr int NV = {V};",
             f"constexpr bool PRIV = {'true' if priv else 'false'};",
+            f"constexpr int RD = {rd};",
             "__device__ __forceinline__ int lane_op(int j) {",
             f"  constexpr int ops[NV] = {{{op_list}}};",
             "  return ops[j];",
             "}",
             "",
-            "__device__ __forceinline__ bool row(const Args& a, long long i, int& key, float* v) {",
+            "__device__ __forceinline__ bool row(const Args& a, long long i, int& key, float* v, const fp::Part& pt) {",
             *body,
             "}",
             "",
             '#include "fused_kernels.cuh"',
             "",
-            "// ptrs: columns, live, params, per dict (keys, block maxima, fvals, ivals),",
-            "// outputs; ints: n, per dict (capacity, directory blocks), accumulator capacity",
+            "// ptrs: columns (raw: data; encoded: words or run values, dictionary",
+            "// values or run ends), live, params, per dict (keys, block maxima, fvals,",
+            "// ivals), [radix: tile partition ids], outputs; ints: per encoded column",
+            "// (rows, kind, bits, ref, block, runs), n, per dict (capacity, directory",
+            "// blocks, block slab length, slot stride, directory blocks a partition),",
+            "// [radix: tiles, tiles a block, staged], accumulator capacity",
             'extern "C" int fused_region_launch(void** ptrs, long long* ints, void* stream) {',
             *launch,
             "}",
@@ -586,7 +804,11 @@ def emit_source(program: Program) -> str:
 # ---------------------------------------------------------------------------
 
 FLAGS = ("--fmad=false",)  # no FMA contraction: per-row values match the twin
+#: dynamic shared memory a block may use on an H100 (227 KB)
+STAGE_BYTES = 232448
 _LAUNCHERS: Dict[Program, object] = {}
+_RAW_KIND = 4  # fp::ENC_RAW; the encoded kinds are decode.KINDS' ids
+_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def _launcher(program: Program):
@@ -602,57 +824,149 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"fused_pipeline: {msg}")
 
 
+def radix_staging(program: Program, dicts: Sequence[ResidentDict]) -> Tuple[bool, int]:
+    """``(staged, bytes)``: whether a radix launch stages each partition's
+    key slab (and st_blocked directory) in shared memory, and the dynamic
+    shared memory a block then asks for (the PRIV accumulator's value lanes
+    included).  A slab that does not fit under ``STAGE_BYTES`` is read
+    through L2 instead."""
+    rd = next(dicts[d] for d, spec in enumerate(program.dicts) if spec.part)
+    lp = rd.slabs[0].shape[1]
+    nbp = rd.slabs[1].shape[1] if len(rd.slabs) > 1 else 0
+    priv = 0
+    if program.out[0] == "dict" and not program.part_terminal and program.out[2] * program.out[3] <= PRIV_FLOATS:
+        priv = program.out[2] * program.out[3] * 4
+    staged = priv + (lp + nbp) * 4 <= STAGE_BYTES
+    return staged, priv + ((lp + nbp) * 4 if staged else 0)
+
+
+def _enc_args(es, n: int, dev, dtype) -> Tuple[List[torch.Tensor], List[int]]:
+    """Pointers' tensors and ints of one column read through ``fp::Enc``."""
+    if isinstance(es, torch.Tensor):
+        _check(es.device == dev and es.dtype == dtype and es.shape == (n,), f"column must be [{n}] {dtype} on {dev}")
+        return [es, es], [n, _RAW_KIND, 0, 0, 0, 0]
+    _check(es.kind in DK.KINDS and DK.DTYPES.get(es.dtype) == dtype and es.n >= 1,
+           f"an encoded {es.kind} {es.dtype} stream cannot be a {dtype} column")
+    tensors = list(DK.stream_payload(es).values())
+    _check(all(t.device == dev and t.is_contiguous() and t.element_size() == 4 for t in tensors),
+           "encoded payloads must be contiguous 4-byte tensors on the live mask's device")
+    nt = -(-es.n // es.block)
+    if es.kind == "rle":
+        runs = es.values.shape[1]
+        _check(es.values.shape == es.ends.shape == (nt, runs) and es.ends.dtype == torch.int32 and runs >= 1,
+               f"RLE tables must be [{nt}, R>=1]")
+        return [es.values, es.ends], [es.n, DK.KINDS["rle"], 0, 0, es.block, runs]
+    _check(es.bits in (1, 2, 4, 8, 16) and es.words.dtype == torch.int32
+           and es.words.shape == (nt * DK.words_per_tile(es.bits, es.block),), "packed words must be int32, whole tiles")
+    b = es.values if es.kind == "dict" else es.words
+    return [es.words, b], [es.n, DK.KINDS[es.kind], es.bits, es.ref, es.block, 0]
+
+
 def fused_pipeline(
     program: Program,
-    cols: Sequence[torch.Tensor],
+    cols: Sequence[Optional[torch.Tensor]],
     live: torch.Tensor,
     dicts: Sequence[ResidentDict],
     params: Sequence[torch.Tensor],
+    *,
+    radix: Optional[RadixPlan] = None,
+    init: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    encoded: Optional[Dict[int, "DK.EncodedStream"]] = None,
 ):
     """Run one fused region.  Returns ``(keys [C] int32, vals [C, V]
     float32)`` — the accumulator in the terminal family's probe layout,
     EMPTY in unclaimed slots, lane identities in their values — for a
-    dictionary terminal, or ``sums [V]`` for a scalar Reduce.  CPU tensors
-    take :func:`fused_pipeline_plain`; CUDA tensors launch the kernel or
-    raise."""
+    dictionary terminal (``[P, C]`` / ``[P, C, V]`` when the terminal is
+    partitioned), or ``sums [V]`` for a scalar Reduce.
+
+    ``radix``: ``cols`` and ``live`` come routed by :func:`radix_route` and
+    the program's partitioned dictionary is a :func:`partitioned_bundle`.
+    ``init=(keys, vals)``: the accumulator to fold into, updated in place and
+    returned.  ``encoded``: column position -> encoded stream (``cols[k]``
+    is then None).  CPU tensors take :func:`fused_pipeline_plain`; CUDA
+    tensors launch the kernel or raise."""
     if not live.is_cuda:
-        return fused_pipeline_plain(program, cols, live, dicts, params)
+        modes = {k: v for k, v in (("radix", radix), ("init", init), ("encoded", encoded or None)) if v is not None}
+        return fused_pipeline_plain(program, cols, live, dicts, params, **modes)
+    _check_modes(program, radix, init, encoded)
+    encoded = encoded or {}
+    enc = program.enc or (False,) * len(program.cols)
     dev = live.device
     n = live.shape[0]
     _check(live.dtype == torch.bool and live.dim() == 1, "live must be a 1-D bool mask")
     _check(len(cols) == len(program.cols) and len(params) == len(program.params)
            and len(dicts) == len(program.dicts), "inputs do not match the program")
-    for t, c in zip(program.cols, cols):
-        _check(c.device == dev and c.dtype == DTYPES[t] and c.shape == (n,), f"column must be [{n}] {t} on {dev}")
+    keep: List[torch.Tensor] = []  # operands stay referenced until the launch is enqueued
+    ptrs: List[int] = []
+    ints: List[int] = []
+    for k, (t, c) in enumerate(zip(program.cols, cols)):
+        if enc[k]:
+            ts, xs = _enc_args(encoded.get(k, c), n, dev, DTYPES[t])
+            keep += ts
+            ptrs += [x.data_ptr() for x in ts]
+            ints += xs
+        else:
+            _check(c is not None and c.device == dev and c.dtype == DTYPES[t] and c.shape == (n,),
+                   f"column must be [{n}] {t} on {dev}")
+            keep.append(c.contiguous())
+            ptrs.append(keep[-1].data_ptr())
+    keep.append(live.contiguous())
+    ptrs.append(keep[-1].data_ptr())
+    ints.append(n)
     for t, s in zip(program.params, params):
         _check(s.device == dev and s.dtype == DTYPES[t] and s.numel() == 1, f"param must be a {t} scalar on {dev}")
-    # contiguous operands stay referenced until the launch is enqueued
-    keep = [c.contiguous() for c in cols] + [live.contiguous()] + [s.contiguous() for s in params]
-    ptrs: List[int] = [t.data_ptr() for t in keep]
-    ints: List[int] = [n]
+        keep.append(s.contiguous())
+        ptrs.append(keep[-1].data_ptr())
     for spec, rd in zip(program.dicts, dicts):
         keys = rd.slabs[0]
-        cap = keys.shape[0]
-        bm = rd.slabs[1] if len(rd.slabs) > 1 else keys
         _check(spec.ds in FAMILIES, f"no CUDA find for family {spec.ds!r}")
         _check(all(s.device == dev and s.dtype == torch.int32 and s.is_contiguous() for s in rd.slabs),
                "key slabs must be contiguous int32 on the live mask's device")
+        _check(spec.part == (rd.n_parts > 0), "a partitioned dictionary goes with a partitioned bundle")
+        bm = rd.slabs[1] if len(rd.slabs) > 1 else keys
+        if spec.part:
+            P, lp = keys.shape
+            cap, lead = rd.cp * P, (P, lp)
+            nbp = bm.shape[1] if len(rd.slabs) > 1 else 0
+            nb = P * nbp
+            _check(radix is not None and P == radix.n_parts, "partition blocks must match the radix plan")
+        else:
+            cap = lp = keys.shape[0]
+            lead, nb, nbp = (cap,), bm.shape[0], 0
         _check(cap & (cap - 1) == 0, "dictionary capacity must be a power of two")
-        _check(rd.fvals.dtype == torch.float32 and rd.fvals.shape == (cap, spec.nf) and rd.fvals.device == dev,
-               f"float payload must be [{cap}, {spec.nf}] float32")
-        _check(rd.ivals.dtype == torch.int32 and rd.ivals.shape == (cap, spec.ni) and rd.ivals.device == dev,
-               f"int payload must be [{cap}, {spec.ni}] int32")
+        _check(rd.fvals.dtype == torch.float32 and rd.fvals.shape == (*lead, spec.nf) and rd.fvals.device == dev,
+               f"float payload must be [{', '.join(map(str, lead))}, {spec.nf}] float32")
+        _check(rd.ivals.dtype == torch.int32 and rd.ivals.shape == (*lead, spec.ni) and rd.ivals.device == dev,
+               f"int payload must be [{', '.join(map(str, lead))}, {spec.ni}] int32")
         fv, iv = rd.fvals.contiguous(), rd.ivals.contiguous()
         keep += [fv, iv]
         ptrs += [keys.data_ptr(), bm.data_ptr(), fv.data_ptr(), iv.data_ptr()]
-        ints += [cap, bm.shape[0]]
+        ints += [cap, nb, lp, rd.cp, nbp]
+    if radix is not None:
+        tp = radix.tile_part
+        n_tiles = tp.shape[0]
+        _check(tp.device == dev and tp.dtype == torch.int32 and tp.is_contiguous() and n == n_tiles * ROW_BLOCK,
+               f"a radix stream is whole {ROW_BLOCK}-row tiles with int32 tile partition ids")
+        staged, _ = radix_staging(program, dicts)
+        per = max(1, -(-n_tiles // (_SMS * (2 if staged else 8))))  # tiles a block walks
+        keep.append(tp)
+        ptrs.append(tp.data_ptr())
+        ints += [n_tiles, per, int(staged)]
     fn = _launcher(program)
     if program.out[0] == "dict":
         _, _, cap, V, ops = program.out
         _check(cap & (cap - 1) == 0, "accumulator capacity must be a power of two")
-        out_keys = torch.full((cap,), dbase.EMPTY, dtype=torch.int32, device=dev)
-        out_vals = torch.empty((cap, V), dtype=torch.float32, device=dev)
-        out_vals.copy_(dbase.lane_identity_row(ops, V, dev)[None, :].expand(cap, V))
+        lead = (radix.n_parts, cap) if program.part_terminal else (cap,)
+        if init is not None:
+            out_keys, out_vals = init
+            _check(out_keys.device == dev and out_keys.dtype == torch.int32 and out_keys.shape == lead
+                   and out_keys.is_contiguous() and out_vals.device == dev and out_vals.dtype == torch.float32
+                   and out_vals.shape == (*lead, V) and out_vals.is_contiguous(),
+                   f"carried state must be contiguous [{cap}] int32 keys and [{cap}, {V}] float32 values")
+        else:
+            out_keys = torch.full(lead, dbase.EMPTY, dtype=torch.int32, device=dev)
+            out_vals = torch.empty((*lead, V), dtype=torch.float32, device=dev)
+            out_vals.copy_(dbase.lane_identity_row(ops, V, dev).expand(*lead, V))
         ptrs += [out_keys.data_ptr(), out_vals.data_ptr()]
         ints.append(cap)
         out = (out_keys, out_vals)
@@ -662,11 +976,21 @@ def fused_pipeline(
         ptrs.append(out.data_ptr())
     build.launch(fn, ptrs, ints, torch.cuda.current_stream(dev).cuda_stream)
     _FUSED.launches += 1
+    modes = _FUSED.mode_launches
+    for mode, used in (("radix", radix is not None), ("init", init is not None), ("encoded", bool(encoded))):
+        if used:
+            modes[mode] += 1
+    if not (radix is not None or init is not None or encoded):
+        modes["resident"] += 1
     del keep
     return out
 
 
-# the launch count lives on the wrapper itself, also when a caller replaces
-# the module attribute with a wrapper of its own
+# the launch counts live on the wrapper itself, also when a caller replaces
+# the module attribute with a wrapper of its own: ``launches`` counts every
+# launch, ``mode_launches`` the launches that used each mode (a launch with
+# init and encoded streams counts under both; "resident" is a launch with
+# neither mode)
 fused_pipeline.launches = 0
+fused_pipeline.mode_launches = {"resident": 0, "radix": 0, "init": 0, "encoded": 0}
 _FUSED = fused_pipeline

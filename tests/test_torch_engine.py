@@ -73,7 +73,9 @@ def test_query_matches_reference_engine(qname, ci, fused, dbs):
 @pytest.mark.parametrize("qname", ["q3", "q18"])
 def test_radix_marked_region_runs_unpartitioned(qname, dbs):
     """A small slot bound makes the planner radix-mark the region in both
-    packages; the port runs it unpartitioned through the fused pipeline."""
+    packages; the port runs it radix-partitioned through the fused pipeline
+    (``kernel-radix``; the reference's CPU path records
+    ``xla-radix-planned``)."""
     rdb, rsig, tdb, tsig = dbs
     rfus = dataclasses.replace(RFusion(), kernel_slots=256)
     tfus = dataclasses.replace(TFusion(), kernel_slots=256)
@@ -86,7 +88,7 @@ def test_radix_marked_region_runs_unpartitioned(qname, dbs):
     want = RE.execute_plan(rplan, rdb, sigma=rsig, params=params)
     got = TE.execute_plan(tplan, tdb, sigma=tsig, params=params)
     for node in marked:
-        assert TE.last_report().mode(node.out) == "kernel-resident"
+        assert TE.last_report().mode(node.out) == "kernel-radix"
     _check(got, want, TQ[qname].reference(tdb))
 
 

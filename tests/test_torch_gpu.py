@@ -82,12 +82,18 @@ def tpch_db(cuda):
 
 @contextlib.contextmanager
 def recording(module, name):
-    """Record every call of ``module.name`` as ``(args, out)``."""
+    """Record every call of ``module.name`` as ``(args, kwargs, out)``; a
+    carried ``init`` state, which the launch updates in place and later
+    launches update again, is recorded as it was before and after the
+    call."""
     real, calls = getattr(module, name), []
 
-    def record(*args):
-        out = real(*args)
-        calls.append((args, out))
+    def record(*args, **kwargs):
+        before = dict(kwargs)
+        if kwargs.get("init") is not None:
+            before["init"] = tuple(t.clone() for t in kwargs["init"])
+        out = real(*args, **kwargs)
+        calls.append((args, before, tuple(t.clone() for t in out) if kwargs.get("init") is not None else out))
         return out
 
     setattr(module, name, record)
@@ -95,6 +101,12 @@ def recording(module, name):
         yield calls
     finally:
         setattr(module, name, real)
+
+
+def _flat(acc):
+    """A dictionary accumulator with its partitions (if any) laid end to end."""
+    keys, vals = acc
+    return keys.reshape(-1), vals.reshape(keys.numel(), -1)
 
 
 def _dict_items(keys, vals):
@@ -109,13 +121,13 @@ def _same_items(got, want):
 
 
 def _fused_calls_match_plain(calls):
-    for args, out in calls:
-        want = fp.fused_pipeline_plain(*args)
+    for args, kwargs, out in calls:
+        want = fp.fused_pipeline_plain(*args, **kwargs)
         torch.cuda.synchronize()
         if args[0].out[0] == "sum":
             torch.testing.assert_close(out, want, rtol=RTOL, atol=ATOL)
         else:
-            _same_items(_dict_items(*out), _dict_items(*want))
+            _same_items(_dict_items(*_flat(out)), _dict_items(*_flat(want)))
 
 
 @pytest.mark.parametrize("V", [1, 4])
@@ -150,11 +162,11 @@ def test_fused_pipeline_kernel_matches_plain_on_tpch(cuda, tpch_db, choices):
             _same_items(got.items_np(), REGISTRY[q].reference(db))
     assert fused
     if choices != "default":  # the chosen family is probed or accumulated on the card
-        used = {d.ds for args, _ in fused for d in args[0].dicts}
-        used |= {args[0].out[1] for args, _ in fused if args[0].out[0] == "dict"}
+        used = {d.ds for args, _, _ in fused for d in args[0].dicts}
+        used |= {args[0].out[1] for args, _, _ in fused if args[0].out[0] == "dict"}
         assert choices in used, used
     _fused_calls_match_plain(fused)
-    for (keys, vals, qs), (gv, gf) in merged:
+    for (keys, vals, qs), _, (gv, gf) in merged:
         pv, pf = ml.merge_lookup_plain(keys, vals, qs)
         assert torch.equal(gf, pf)
         assert torch.equal(gv, pv)
@@ -198,7 +210,7 @@ def test_fused_pipeline_reduce_kernel_matches_plain(cuda, kind):
     with recording(fp, "fused_pipeline") as fused:
         E.execute_plan(plan, db, sigma=collect_stats(db))
     assert E.last_report().mode(plan.result) == "kernel-resident"
-    assert [args[0].out[0] for args, _ in fused] == ["sum"]
+    assert [args[0].out[0] for args, _, _ in fused] == ["sum"]
     _fused_calls_match_plain(fused)
 
 
@@ -299,10 +311,10 @@ def test_indb_ml_path_on_card(cuda):
     assert set(modes.values()) == {"kernel-resident"}, modes
     assert len(fused) == 8 and len(segs) == 2 and merged
     _fused_calls_match_plain(fused)
-    for (keys, vals, qs), (gv, gf) in merged:
+    for (keys, vals, qs), _, (gv, gf) in merged:
         pv, pf = ml.merge_lookup_plain(keys, vals, qs)
         assert torch.equal(gf, pf) and torch.equal(gv, pv)
-    for (keys, vals), (gs, ge) in segs:
+    for (keys, vals), _, (gs, ge) in segs:
         ps, pe = sr.segment_reduce_plain(keys, vals)
         assert torch.equal(ge, pe)
         torch.testing.assert_close(gs, ps, rtol=RTOL, atol=ATOL)
@@ -359,8 +371,10 @@ def test_decode_kernel_refuses_what_it_does_not_take(cuda):
 
 def test_streamed_session_on_card(cuda):
     """lineitem streams in 4,096-row chunks through the decode kernel and
-    the fused pipeline; results equal the resident session's and the numpy
-    oracle; every decode launch is bitwise its twin."""
+    the fused pipeline (its folds carrying ``init=`` and reading encoded
+    columns as ``encoded=`` streams); results equal the resident session's
+    and the numpy oracle; every decode launch is bitwise its twin and every
+    fused launch within the tolerance of its twin."""
     db = tpch.generate(scale=0.01, seed=7, device=cuda).tables()
     sigma = collect_stats(db)
     budget = int(sum(4 * st.rows * len(st.columns) for rel, st in sigma.rels.items() if rel != "lineitem"))
@@ -379,8 +393,10 @@ def test_streamed_session_on_card(cuda):
         assert any(m.startswith("streamed") for m in rep.modes().values())
         kernel_chunks = sum(int(m.split(":")[1]) for m in rep.modes().values() if m.startswith("streamed-kernel:"))
         assert len(fused) >= kernel_chunks
-        assert decodes, name
-        for args, out in decodes:
+        # encoded columns reach the card through the decode kernel or, in a
+        # streamed-kernel fold, as the fused pipeline's encoded streams
+        assert decodes or any(kw.get("encoded") for _, kw, _ in fused), name
+        for args, _, out in decodes:
             assert torch.equal(out.view(torch.int32), dk.decode_plain(*args).view(torch.int32))
         _fused_calls_match_plain(fused)
 
@@ -576,3 +592,120 @@ def test_profile_cell_on_card_launches_the_dict_kernels(cuda):
     assert len(tab.rows) == 32 and all(r.seconds > 0 for r in tab.rows)
     after = [f.launches for f in (hb.hash_build, hp.hash_probe, sl.sorted_lookup)]
     assert all(a > b for a, b in zip(after, before)), (before, after)
+
+
+# ---------------------------------------------------------------------------
+# the fused pipeline's radix, init= and encoded= modes
+# ---------------------------------------------------------------------------
+
+
+def _mode_plan(kind, ds):
+    """One fused region over S probing ``G`` (built over R by ``ds``):
+    ``part_term`` groups by the probe key (a partitioned accumulator),
+    ``groupby`` by another column, ``reduce`` folds scalars through an
+    interleaved lookup of G."""
+    def k(var, col):
+        return L.FieldAccess(L.FieldAccess(L.Var(var), "key"), col)
+
+    scan_r = P.Scan("%r", source="R", var="r")
+    if kind == "reduce":
+        return P.Plan((
+            scan_r,
+            P.GroupBy("G", source="%r", keyexpr=k("r", "a"), values=(("t", k("r", "m")),), choice=DictChoice(ds)),
+            P.Scan("%s", source="S", var="s"),
+            P.Reduce("Tot", source="%s", fields=(
+                ("sw", L.BinOp("*", k("s", "w"), L.FieldAccess(L.Var("g"), "t"))), ("n", k("s", "w"))),
+                lookup_sym="G", lookup_key=k("s", "a"), lookup_var="g"),
+        ), "Tot")
+    return P.Plan((
+        scan_r,
+        P.HashBuild("G", source="%r", keyexpr=k("r", "a"), choice=DictChoice(ds)),
+        P.Scan("%s", source="S", var="s"),
+        P.HashProbe("%p", source="%s", build="G", keyexpr=k("s", "a"), inner_var="g"),
+        P.GroupBy("Agg", source="%p", keyexpr=k("s", "a") if kind == "part_term" else k("s", "b"),
+                  values=(("x", L.BinOp("*", k("s", "w"), k("g", "m"))), ("c", L.Const(1.0, L.DOUBLE))),
+                  choice=DictChoice("ht_linear")),
+    ), "Agg")
+
+
+@pytest.mark.parametrize("parts", [2, 32], ids=["l2", "staged"])
+@pytest.mark.parametrize("kind", ["part_term", "groupby", "reduce"])
+@pytest.mark.parametrize("ds", ["ht_linear", "st_sorted", "st_blocked"])
+def test_fused_radix_kernel_matches_plain(cuda, ds, kind, parts):
+    """A region radix-partitioned over a 131,072-slot dictionary: 2 blocks
+    of 65,536+ slots read through L2, or 32 blocks of 4,096+ staged in
+    shared memory; the launch against its twin, the result against the same
+    region unpartitioned."""
+    rng = np.random.default_rng(parts)
+    nr, ns = 60_000, 200_000
+    db = {
+        "R": from_numpy({"a": np.arange(nr, dtype=np.int32), "m": rng.normal(size=nr).astype(np.float32)}, device=cuda),
+        "S": from_numpy({"a": rng.integers(0, nr + 5000, ns).astype(np.int32),
+                         "b": rng.integers(0, 50, ns).astype(np.int32),
+                         "w": rng.normal(size=ns).astype(np.float32)}, device=cuda),
+    }
+    sigma = collect_stats(db)
+    fused = P.fuse(_mode_plan(kind, ds), sigma=sigma)
+    marked = P.Plan(tuple(
+        dataclasses.replace(n, partitions=parts, part_sym="G") if isinstance(n, P.Pipeline) and n.source == "S" else n
+        for n in fused.nodes), fused.result)
+    flat = E.execute_plan(fused, db, sigma=sigma)
+    before = dict(fp.fused_pipeline.mode_launches)
+    with recording(fp, "fused_pipeline") as calls:
+        got = E.execute_plan(marked, db, sigma=sigma)
+    assert E.last_report().mode(fused.result) == "kernel-radix"
+    assert fp.fused_pipeline.mode_launches["radix"] == before["radix"] + 1
+    (args, kwargs, _), = calls
+    assert kwargs["radix"].part_terminal == (kind == "part_term") == args[0].part_terminal
+    staged, _ = fp.radix_staging(args[0], args[3])
+    assert staged == (parts == 32)
+    _fused_calls_match_plain(calls)
+    if kind == "reduce":
+        for name in flat:
+            torch.testing.assert_close(got[name], flat[name], rtol=RTOL, atol=ATOL)
+    else:
+        _same_items(got.items_np(), flat.items_np())
+
+
+def _enc_cases(rng, n):
+    """An encoded-stream case per encoding and bit width: (name, array, kind)."""
+    return _decode_columns(rng, n)
+
+
+@pytest.mark.parametrize("n", [777, 65_536 - 5, 200_003])
+def test_fused_encoded_and_init_kernel_matches_plain(cuda, n):
+    """Every encoding and bit width read through ``encoded=``, one group a
+    row (keys = row ids), so each value lane is the decoded row itself: the
+    kernel's in-register reads equal the decode kernel's bit for bit.  The
+    same rows then fold as two ``init=`` steps equal to one launch."""
+    rng = np.random.default_rng(n)
+    rows = max(65_536, -(-n // 1024) * 1024)  # the chunk's padded length
+    ids = torch.arange(rows, dtype=torch.int32, device=cuda)
+    live = ids < n
+    cap = dbase.next_pow2(2 * rows)
+    for name, a, kind in _enc_cases(rng, n):
+        t = "f32" if a.dtype == np.float32 else "i32"
+        prog = fp.Program(("i32", t), (), (), (), ("groupby", ("col", "i32", 0), (fp.cast(("col", t, 1), "f32"),)),
+                          ("dict", "ht_linear", cap, 1, ()), enc=(False, True))
+        enc = S.encode_column(a, block=1024, mode=kind)
+        es = dk.encoded_stream(enc, {k: torch.from_numpy(np.array(v)).to(cuda) for k, v in enc.payload.items()})
+        before = fp.fused_pipeline.mode_launches["encoded"]
+        got = fp.fused_pipeline(prog, [ids, None], live, [], [], encoded={1: es})
+        torch.cuda.synchronize()
+        assert fp.fused_pipeline.mode_launches["encoded"] == before + 1
+        want = fp.fused_pipeline_plain(prog, [ids, None], live, [], [], encoded={1: es})
+        g, w = _dict_items(*got), _dict_items(*want)
+        assert g.keys() == w.keys() == set(range(n)), name
+        assert all(np.array_equal(g[k], w[k]) for k in w), name
+        col = dk.decode(dk.column_code(enc), dk.stream_payload(es), rows)
+        raw = fp.fused_pipeline(prog._replace(enc=()), [ids, col], live, [], [])
+        assert all(np.array_equal(v, g[k]) for k, v in _dict_items(*raw).items()), name
+        # two fold steps with a carried accumulator equal one launch
+        half = rows // 2
+        first = fp.fused_pipeline(prog, [ids, col], live & (ids < half), [], [])
+        kept = tuple(x.clone() for x in first)
+        both = fp.fused_pipeline(prog, [ids, col], live & (ids >= half), [], [], init=first)
+        assert both[0].data_ptr() == first[0].data_ptr()  # folded in place
+        carried = fp.fused_pipeline_plain(prog, [ids, col], live & (ids >= half), [], [], init=kept)
+        _same_items(_dict_items(*both), _dict_items(*carried))
+        _same_items(_dict_items(*both), g)
