@@ -52,8 +52,9 @@ Phases (any failure exits non-zero):
    fused-pipeline launch per kernel-eligible branch of the batch; every
    launch against its twin; the segment reduce, the new merge-lookup shape
    and every fused launch of the covariance batch timed beside their bounds
-   (twins and library calls where they exist); warm walls and peak device
-   memory of each path;
+   (twins and library calls where they exist; the segment reduce's GB/s,
+   share of its bound, shared memory and ``-Xptxas -v`` report); warm walls
+   and peak device memory of each path;
 9. llama3.2-3b inference at its published widths (28 layers, d_model
    3,072, 24/8 heads of 128, d_ff 8,192, vocab 128,256; random bf16 weights
    from seed 0, 6.4 GB): the flash-attention kernel against its twin at
@@ -63,7 +64,10 @@ Phases (any failure exits non-zero):
    ``Model.forward`` (28 launches, finite logits, a profiled pass); the
    kernel at the forward's layer-0 inputs against its twin; the kernel, its
    twin and ``scaled_dot_product_attention`` timed at one layer's shape at
-   T = 8,192 and 32,768 beside the bound; 16 teacher-forced ``decode_step``
+   T = 8,192 and 32,768 beside the bound (TFLOP/s and share of the bound);
+   the wgmma kernel's ``-Xptxas -v`` report, dynamic shared memory and
+   HGMMA / HMMA counts in the library's SASS (``cuobjdump``; "not
+   measured" without it); 16 teacher-forced ``decode_step``
    calls from an empty cache against the forward's logits (cosine >= 0.99
    a row); the continuous-batching ``Server`` twice, greedy (16 requests, 4
    slots, 256 cache slots, 16 new tokens each, equal tokens); ``python -m
@@ -122,6 +126,7 @@ It imports nothing of JAX and nothing of the reference package.
 """
 import bisect
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import json
@@ -154,8 +159,8 @@ OOC_CHUNK_ROWS = 1 << 20
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 LM_ARCH, LM_SEED = "llama3.2-3b", 0
 # the reference's prefill_32k shape is 32 x 32,768; the phase runs 1 x 8,192
-# (the 32 x 32,768 bf16 logits alone are 269 GB, and the simple kernel costs
-# seconds a forward at 32,768) and times one layer's attention at 32,768
+# (the 32 x 32,768 bf16 logits alone are 269 GB) and times one layer's
+# attention at 32,768
 LM_T, LM_T_LONG = 8192, 32768
 # kernel against twin: float32 sums the same products in another order;
 # bfloat16 rounds the outputs (a step of 2^-8 just below 1) and a p that
@@ -169,7 +174,8 @@ FA_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 FA_LONG_ROW, FA_REL_TOL = 256, 1e-2
 # (B, H, Hkv, Tq, Tk, D, causal, window): llama3.2-3b's layer at 2,048, then
 # MHA, GQA, MQA with Tq < Tk, non-causal, a window, unaligned lengths and
-# rows that see no key (the reference suite's cases and more)
+# rows that see no key (the reference suite's cases and more), then lengths
+# that straddle the wgmma kernel's 128-row tiles, with and without a window
 FA_SHAPES = [
     (1, 24, 8, 2048, 2048, 128, True, 0),
     (1, 2, 2, 64, 64, 16, True, 0),
@@ -179,6 +185,8 @@ FA_SHAPES = [
     (1, 2, 1, 96, 96, 128, True, 40),
     (1, 1, 1, 50, 70, 16, True, 0),
     (2, 4, 2, 100, 37, 64, True, 0),
+    (1, 4, 2, 129, 1000, 128, True, 0),
+    (1, 4, 2, 1000, 129, 64, True, 200),
 ]
 DECODE_STEPS, DECODE_COS = 16, 0.99  # teacher-forced steps; least cosine of a step's logits to the forward's
 FIXTURE_TOL = 1e-3  # the port's float32 forward on the card against the reference's on the CPU
@@ -228,6 +236,44 @@ START = time.perf_counter()
 def stamp(phase):
     """Mark the start of a phase with the seconds since the script began."""
     print(f"[{time.perf_counter() - START:.1f}s] {phase}", flush=True)
+
+
+def ptxas_lines(build, lib, entry_part):
+    """What ``-Xptxas -v`` reported (registers, shared memory, spills) for
+    the entry functions of library ``lib`` whose names contain
+    ``entry_part``, as ``(entry, line)`` pairs."""
+    out = []
+    for rec in build.BUILDS:
+        if rec.name != lib:
+            continue
+        entry = None
+        for line in rec.ptxas.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif entry and entry_part in entry and ("registers" in line or "spill" in line):
+                out.append((entry, line.split(":", 1)[-1].strip()))
+    return out
+
+
+def sass_counts(path, ops):
+    """``{function: {op: count}}`` of SASS instructions in a built library
+    (``cuobjdump -sass``), or None where ``cuobjdump`` is not on the machine."""
+    tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    proc = subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        return None
+    counts, fn = {}, None
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = dict.fromkeys(ops, 0)
+        elif fn is not None:
+            for op in ops:
+                if re.search(rf"\b{op}\b", line):
+                    counts[fn][op] += 1
+    return counts
 
 
 def bound_ms(nbytes, nops):
@@ -624,6 +670,7 @@ def lm_phase(torch, dev, src):
     import torch.nn.functional as F
 
     from repro_torch import configs
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import common as MC
     from repro_torch.models import lm as LM
@@ -719,14 +766,33 @@ def lm_phase(torch, dev, src):
                          - F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True).float()).abs().max())
         rows.append({"T": T, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bytes": nb, "ops": nops,
                      "bound_ms": bms, "forward_ms": ms * cfg.n_layers, "forward_bound_ms": bms * cfg.n_layers,
-                     "max_abs_diff_library": lib_err})
+                     "max_abs_diff_library": lib_err, "tflop_s": nops / ms / 1e9, "bound_share": bms / ms})
         print(f"flash attention B=1 H={cfg.n_heads} Hkv={cfg.n_kv_heads} T={T} D={cfg.hd} causal bf16: kernel "
-              f"{ms:.3f} ms ({ms / bms:.1f}x its bound {bms:.3f} ms, operations; {nops / ms / 1e9:.1f} TFLOP/s), "
+              f"{ms:.3f} ms ({nops / ms / 1e9:.1f} TFLOP/s, {bms / ms:.3f} of its bound {bms:.3f} ms, operations "
+              f"at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s), "
               f"twin {'not measured' if plain_ms is None else f'{plain_ms:.1f} ms'}, "
               f"scaled_dot_product_attention {lib_ms:.3f} ms (max |kernel - it| {lib_err:.3g}); "
               f"x {cfg.n_layers} layers {ms * cfg.n_layers:.1f} ms")
         del q, k, v
     out["fa_rows"] = rows
+    # the wgmma kernel as built: registers, shared memory and spills, and
+    # its tensor-core instructions in the library's SASS
+    lib = build.load("flash_attention", (build.CSRC / "flash_attention.cu").read_text())
+    lib.flash_attention_wgmma_smem.argtypes, lib.flash_attention_wgmma_smem.restype = [ctypes.c_int], ctypes.c_int
+    for entry, line in ptxas_lines(build, "flash_attention", "attn_wgmma_kernel"):
+        print(f"flash attention ptxas ...{entry[-48:]}: {line}")
+    print("flash attention wgmma kernel: 384 threads, dynamic shared memory "
+          + ", ".join(f"D={D} {lib.flash_attention_wgmma_smem(D)} B" for D in (64, 128)))
+    sass = sass_counts(lib._name, ("HGMMA", "HMMA"))
+    out["sass"] = sass
+    if sass is None:
+        print("flash attention SASS: HGMMA count not measured (no cuobjdump)")
+    else:
+        for fn, counts in sass.items():
+            print(f"flash attention SASS ...{fn[-48:]}: {counts['HGMMA']} HGMMA, {counts['HMMA']} HMMA")
+        wgmma_fns = [c for fn, c in sass.items() if "attn_wgmma_kernel" in fn]
+        check(len(wgmma_fns) == 2 and all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in wgmma_fns),
+              "the wgmma kernels do not run on HGMMA alone")
 
     stamp("9. LM inference: decode against forward")
     cache = LM.init_cache(cfg, 1, 64, fill_len=0, device=dev)
@@ -1323,7 +1389,9 @@ def main() -> int:
 
     n, V = svals.shape
     sr_bytes, sr_ops = n * (4 + 4 * V) + n * (4 * V + 1), n * V
-    sr_ms = timed(torch, lambda: real_sr(skeys, svals), 20)
+    # the better of two timed runs: the first can still pay the caching
+    # allocator's growth for the 1 GB output
+    sr_ms = min(timed(torch, lambda: real_sr(skeys, svals), 20) for _ in range(2))
     sr_plain_ms = timed(torch, lambda: sr.segment_reduce_plain(skeys, svals), 5)
 
     def sr_library():  # two calls: run lengths, then the segmented sum
@@ -1336,6 +1404,11 @@ def main() -> int:
     print(f"segment reduce n={n} V={V}: kernel {sr_ms:.3f} ms, bound {sr_row['bound_ms']:.4f} ms, "
           f"plain {sr_plain_ms:.3f} ms, unique_consecutive+segment_reduce (two calls) {sr_lib_ms:.3f} ms; "
           f"max |kernel-plain| {sr_err:.4g}")
+    sr_row["gb_s"], sr_row["bound_share"] = sr_bytes / sr_ms / 1e6, sr_row["bound_ms"] / sr_ms
+    print(f"segment reduce: {sr_row['gb_s']:.1f} GB/s, {sr_row['bound_share']:.3f} of its bound (bytes at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); one launch, {sr.smem_bytes(V)} B of dynamic shared memory a block")
+    for entry, line in ptxas_lines(build, "segment_reduce", f"segment_kernelILi{V}E"):
+        print(f"segment reduce ptxas (V={V}): {line}")
     del skeys, svals
     gc.collect()
     torch.cuda.empty_cache()

@@ -4,9 +4,18 @@ masks, as a hand-written Hopper kernel (``csrc/flash_attention.cu``).
 Replaces ``repro/kernels/flash_attention.py:flash_attention``.  One CUDA
 block per (query head, query tile, batch row) walks the key tiles in order,
 keeping the running max, the running sum and the float32 accumulator of its
-rows, and skips the key tiles that causality and the window mask out
-entirely.  bfloat16 runs on the tensor cores (``mma.sync``, 64 × 64 tiles);
-float32 runs in plain FMA (32 × 16 tiles), so that its sums stay float32.
+rows, and visits only the key tiles that :func:`tile_class` does not skip.
+Which kernel serves which ``(dtype, D)`` (:data:`TILES` gives each one's
+query and key tile):
+
+* bfloat16 at D = 64 and 128 (every dense config of the port): 128 × 128
+  tiles; a producer warpgroup loads Q once and K/V into a two-stage
+  shared-memory ring with TMA (tensor maps built in the library through the
+  driver's ``cuTensorMapEncodeTiled``), two consumer warpgroups compute
+  ``S = Q Kᵀ`` and ``O += P V`` with ``wgmma`` (P from registers), and only
+  the tiles :func:`tile_class` calls masked test each element;
+* bfloat16 at D = 16 (the reduced test models): ``mma.sync``, 64 × 64 tiles;
+* float32: plain FMA, 32 × 16 tiles, so that its sums stay float32.
 
 The plain twin, :func:`flash_attention_plain`, runs the same tiles and the
 same sentinels in PyTorch; the wrapper takes it only for CPU tensors.
@@ -18,8 +27,9 @@ Semantics kept from the reference:
 * query head ``h`` reads KV head ``h // (H / Hkv)`` (no repeated K/V);
 * masked logits are ``-1e30``; ``p`` and the rescale are 0 while the running
   max is at most ``-5e29``; a row with no visible key returns 0;
-* the scale ``1/sqrt(D)`` multiplies the float32 logits; ``p`` is rounded to
-  ``v.dtype`` before the PV product, and the sum of ``p`` is not.
+* the scale ``1/sqrt(D)`` multiplies the float32 logits (the wgmma kernel
+  folds ``scale·log2(e)`` into one FMA and takes ``ex2.approx``); ``p`` is
+  rounded to ``v.dtype`` before the PV product, and the sum of ``p`` is not.
 """
 from __future__ import annotations
 
@@ -31,26 +41,56 @@ from . import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 64, 128)
-#: (query rows, key columns) of a tile, per dtype (``csrc/flash_attention.cu``)
-TILES = {torch.bfloat16: (64, 64), torch.float32: (32, 16)}
+#: (query rows, key columns) of a block's tile, per (dtype, head dim)
+#: (``csrc/flash_attention.cu``: the wgmma kernel at bf16 D = 64 and 128,
+#: ``mma.sync`` at bf16 D = 16, FMA in float32)
+TILES = {
+    (torch.bfloat16, 16): (64, 64),
+    (torch.bfloat16, 64): (128, 128),
+    (torch.bfloat16, 128): (128, 128),
+    **{(torch.float32, d): (32, 16) for d in HEAD_DIMS},
+}
+#: the wgmma kernel's consumer warpgroup: it classifies each key tile for its own rows
+WARPGROUP_ROWS = 64
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _MAX_GRID_Y = 65535
 
+SKIP, FULL, MASKED = 0, 1, 2
 
-def _skipped(row0: int, rows: int, col0: int, cols: int, causal: bool, window: int) -> bool:
-    """Whether a [row0, row0 + rows) × [col0, col0 + cols) tile is masked
-    whole (``row0`` a key position); the kernel does not visit it."""
-    return (causal and col0 > row0 + rows - 1) or (window > 0 and col0 + cols - 1 <= row0 - window)
+
+def tile_class(row0: int, rows: int, col0: int, cols: int, Tk: int, causal: bool, window: int) -> int:
+    """The class of a [row0, row0 + rows) × [col0, col0 + cols) tile
+    (``row0`` a key position): :data:`SKIP` when no pair is visible,
+    :data:`FULL` when every pair is (no per-element mask), :data:`MASKED`
+    otherwise (the diagonal, window-edge and ragged ``col >= Tk`` tiles).
+    The kernel's ``tile_class`` is the same rule."""
+    if (causal and col0 > row0 + rows - 1) or (window > 0 and col0 + cols - 1 <= row0 - window):
+        return SKIP
+    if col0 + cols <= Tk and (not causal or col0 + cols - 1 <= row0) and (window <= 0 or col0 > row0 + rows - 1 - window):
+        return FULL
+    return MASKED
+
+
+def visited_tiles(row0: int, rows: int, Tk: int, bk: int, causal: bool, window: int) -> range:
+    """The key tiles a block of ``rows`` query rows from key position
+    ``row0`` visits, as the kernel's ``visited_tiles`` computes them: every
+    tile :func:`tile_class` does not skip, a contiguous range (causality
+    bounds the last, the window the first)."""
+    last = min(Tk - 1, row0 + rows - 1) if causal else Tk - 1
+    hi = 0 if last < 0 else last // bk + 1
+    lo = max(0, row0 - window + 1) // bk if window > 0 else 0
+    return range(lo, hi)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0, bq=None, bk=None) -> torch.Tensor:
     """``[B, H, Tq, D]`` in ``q.dtype`` from ``q [B, H, Tq, D]`` and ``k``,
     ``v [B, Hkv, Tk, D]``: the kernel's algorithm tile by tile (by default
-    its tiles for ``q.dtype``), accumulated in float32."""
+    its tiles for ``(q.dtype, D)``), accumulated in float32; only the tiles
+    :func:`tile_class` calls masked take the mask."""
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     g = H // Hkv
-    dq, dk = TILES.get(q.dtype, (64, 64))
+    dq, dk = TILES.get((q.dtype, D), (64, 64))
     bq, bk = bq or dq, bk or dk
     scale = 1.0 / math.sqrt(D)
     q_off = Tk - Tq
@@ -64,17 +104,17 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0, bq=N
         m = torch.full((B, Hkv, g, n), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((B, Hkv, g, n), dtype=torch.float32, device=dev)
         acc = torch.zeros((B, Hkv, g, n, D), dtype=torch.float32, device=dev)
-        for j0 in range(0, Tk, bk):
-            if _skipped(i0 + q_off, bq, j0, bk, causal, window):
-                continue
+        for jt in visited_tiles(i0 + q_off, bq, Tk, bk, causal, window):
+            j0 = jt * bk
             cols = torch.arange(j0, min(j0 + bk, Tk), device=dev)
             s = torch.einsum("bhgqd,bhkd->bhgqk", qg[:, :, :, i0:i0 + n], kf[:, :, j0:j0 + bk]) * scale
-            mask = torch.ones((n, cols.shape[0]), dtype=torch.bool, device=dev)
-            if causal:
-                mask &= cols[None, :] <= rows[:, None]
-            if window > 0:
-                mask &= cols[None, :] > rows[:, None] - window
-            s = torch.where(mask, s, NEG_INF)
+            if tile_class(i0 + q_off, bq, j0, bk, Tk, causal, window) == MASKED:
+                mask = torch.ones((n, cols.shape[0]), dtype=torch.bool, device=dev)
+                if causal:
+                    mask &= cols[None, :] <= rows[:, None]
+                if window > 0:
+                    mask &= cols[None, :] > rows[:, None] - window
+                s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(-1))
             dead = m_new <= NEG_INF / 2
             p = torch.where(dead[..., None], 0.0, torch.exp(s - m_new[..., None]))
@@ -105,7 +145,8 @@ def _check(cond: bool, msg: str) -> None:
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Tensor:
     """``[B, H, Tq, D]`` in ``q.dtype``.  CPU tensors take
-    :func:`flash_attention_plain`; CUDA tensors launch the kernel or raise.
+    :func:`flash_attention_plain`; CUDA tensors launch the kernel that
+    serves ``(q.dtype, D)`` (see :data:`TILES`) or raise.
 
     The kernel reads any layout whose last dimension is contiguous and whose
     other strides are multiples of 16 bytes (a head split of a projection
@@ -125,7 +166,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.T
     _check(Hkv >= 1 and H % Hkv == 0, f"{H} query heads are not a multiple of {Hkv} KV heads")
     _check(Tq >= 1 and Tk >= 1 and B >= 1, "empty q or k")
     _check(window >= 0, "window must be >= 0")
-    _check(-(-Tq // TILES[q.dtype][0]) <= _MAX_GRID_Y and B <= _MAX_GRID_Y, "too many query tiles or batch rows")
+    _check(-(-Tq // TILES[(q.dtype, D)][0]) <= _MAX_GRID_Y and B <= _MAX_GRID_Y, "too many query tiles or batch rows")
     esz = q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(t.stride(3) == 1, f"{name}'s last dimension must be contiguous")

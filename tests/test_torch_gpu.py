@@ -9,14 +9,18 @@ every dictionary choice set (each family's find and accumulator is its own
 device code), and two scalar Reduce regions cover the block-reduction
 kernel.  Every launch is held against its plain twin on the same inputs.
 The segment reduce runs adversarial run layouts (one run over thousands of
-tiles, a PAD tail, a ragged last tile, V = 1 and 5), and the in-DB ML path
+tiles, a PAD tail, a ragged last tile, V = 1 and 5; n = 1, 4,095, 4,096 and
+4,097 and one run of 3,000,001 rows at V = 1, 3, 5, 8 bit for bit;
+unaligned inputs; its lane limit), and the in-DB ML path
 (the normal-equation batch, the factorized and naive covariance) runs at a
 small size with every kernel launch held against its twin.  The decode
 kernel runs every encoding and bit width on ragged and short final chunks,
 bit for bit against its twin, and a small out-of-core session streams
 lineitem through it.  The flash-attention kernel runs bfloat16 and float32
 at the shapes ``chip_smoke.py`` gives it (MHA, GQA, MQA, a window, unaligned
-lengths, Tq < Tk, Tq > Tk, non-causal, strided head splits), and a reduced
+lengths, Tq < Tk, Tq > Tk, non-causal, strided head splits; the wgmma
+kernel at D = 64 and 128 over lengths on both sides of its 128-row tiles,
+windows of 40 and 200, strided heads bit for bit), and a reduced
 llama forward on the card launches it once per layer.  The dictionary
 kernels (hash probe, sorted lookup, hash build) run against their twins at
 small and TPC-H SF 0.01 shapes, through the families' routes too, and the
@@ -229,7 +233,7 @@ def test_queries_on_card_match_reference(cuda):
 SEGMENT_CASES = {
     "k30": (30, 2000, 2, 0, False),
     "one_row": (4, 1, 3, 0, False),
-    # one run over 8,790 tiles: the carry pass crosses its 8,192-tile chunks
+    # one run over 2,198 tiles of 4,096 rows: the look-back walks through it
     "all_equal": (1, 9_000_000, 3, 0, True),
     "few_long_runs": (7, 9_000_000, 2, 1000, True),
     "pad_tail": (40, 300_000, 3, 70_000, True),
@@ -270,6 +274,59 @@ def test_segment_reduce_kernel_refuses_what_it_does_not_take(cuda):
         sr.segment_reduce(k, torch.zeros((2, 8), device=cuda).t())
     with pytest.raises(ValueError):
         sr.segment_reduce(k.cpu(), torch.zeros((8, 2), device=cuda))
+
+
+# n = 1, one tile less one row, one tile, one tile and a row; then one run of
+# 3,000,001 equal keys across all 733 tiles.  Integer values in [-1, 1]
+# keep every partial sum exact, so the kernel equals its twin bit for bit.
+@pytest.mark.parametrize("V", [1, 3, 5, 8])
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 3_000_001])
+def test_segment_reduce_lookback_edges(cuda, n, V):
+    rng = np.random.default_rng(n + 7 * V)
+    keys = np.zeros(n, np.int32) if n > 4097 else np.sort(rng.integers(0, 30, n)).astype(np.int32)
+    vals = rng.integers(-1, 2, (n, V)).astype(np.float32)
+    k, v = torch.from_numpy(keys).to(cuda), torch.from_numpy(vals).to(cuda)
+    before = sr.segment_reduce.launches
+    gs, ge = sr.segment_reduce(k, v)
+    torch.cuda.synchronize()
+    assert sr.segment_reduce.launches == before + 1
+    ps, pe = sr.segment_reduce_plain(k, v)
+    assert torch.equal(ge, pe) and torch.equal(gs, ps)
+    if n > 4097:  # the one run's total sits at the last row
+        assert int(ge.sum()) == 1 and torch.equal(gs[-1].cpu(), torch.from_numpy(vals.sum(0, dtype=np.float64)).float())
+
+
+def test_segment_reduce_unaligned_inputs_take_plain_loads(cuda):
+    """Inputs that are not 16-byte aligned (a slice one row in) take the
+    kernel's plain loads and stores in every tile."""
+    rng = np.random.default_rng(5)
+    n, V = 50_001, 3
+    keys = torch.from_numpy(np.sort(rng.integers(0, 900, n + 1)).astype(np.int32)).to(cuda)[1:]
+    vals = torch.from_numpy(rng.integers(-1, 2, (n + 1, V)).astype(np.float32)).to(cuda)[1:]
+    assert keys.data_ptr() % 16 and vals.data_ptr() % 16
+    before = sr.segment_reduce.launches
+    gs, ge = sr.segment_reduce(keys, vals)
+    torch.cuda.synchronize()
+    assert sr.segment_reduce.launches == before + 1
+    ps, pe = sr.segment_reduce_plain(keys, vals)
+    assert torch.equal(ge, pe) and torch.equal(gs, ps)
+
+
+def test_segment_reduce_kernel_lane_limit(cuda):
+    """V up to the kernel's shared-memory limit runs; one lane more raises."""
+    rng = np.random.default_rng(6)
+    n = 20_000
+    k = torch.from_numpy(np.sort(rng.integers(0, 500, n)).astype(np.int32)).to(cuda)
+    v = torch.from_numpy(rng.integers(-1, 2, (n, sr.MAX_V)).astype(np.float32)).to(cuda)
+    before = sr.segment_reduce.launches
+    gs, ge = sr.segment_reduce(k, v)
+    torch.cuda.synchronize()
+    assert sr.segment_reduce.launches == before + 1
+    ps, pe = sr.segment_reduce_plain(k, v)
+    assert torch.equal(ge, pe) and torch.equal(gs, ps)
+    with pytest.raises(ValueError):
+        sr.segment_reduce(k, torch.zeros((n, sr.MAX_V + 1), device=cuda))
+    assert sr.segment_reduce.launches == before + 1
 
 
 def test_indb_ml_path_on_card(cuda):
@@ -477,6 +534,53 @@ def test_flash_attention_kernel_reads_strided_heads(cuda, dtype):
     torch.cuda.synchronize()
     assert got.transpose(1, 2).is_contiguous()
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# the wgmma kernel (bfloat16, D = 64 and 128): lengths on both sides of the
+# 128-row tiles, Tq < Tk and Tq > Tk (rows that see no key) under causality,
+# windows of 40 and 200 (smaller and larger than a tile), and non-causal
+WGMMA_LENGTHS = (1, 127, 128, 129, 1000)
+WGMMA_CASES = (
+    [(Tq, Tk, True, 0) for Tq in WGMMA_LENGTHS for Tk in WGMMA_LENGTHS]
+    + [(Tq, Tk, True, w) for w in (40, 200) for Tq, Tk in ((1000, 1000), (129, 1000), (1000, 129))]
+    + [(127, 1000, False, 0), (1000, 129, False, 40)]
+)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Tq,Tk,causal,window", WGMMA_CASES)
+def test_flash_attention_wgmma_kernel_matches_plain(cuda, Tq, Tk, causal, window, D):
+    g = torch.Generator(device=cuda).manual_seed(Tq * 31 + Tk + D + window)
+    q, k, v = (torch.randn((1, h, T, D), generator=g, device=cuda).to(torch.bfloat16)
+               for h, T in ((4, Tq), (2, Tk), (2, Tk)))
+    n = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.flash_attention.launches == n + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert _long_row_rel_err(got, want, Tk, causal, window) <= FLASH_REL_TOL
+    if causal and Tq > Tk:  # rows at key positions < 0 see nothing
+        assert not got[:, :, : Tq - Tk].any()
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_wgmma_kernel_reads_strided_heads(cuda, D):
+    """Heads split off a [B, T, H·D] projection (no copy) give, bit for bit,
+    the result of contiguous inputs, through the tensor maps' strides."""
+    B, T, H, Hkv = 2, 300, 8, 2
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q = torch.randn((B, T, H * D), generator=g, device=cuda).to(torch.bfloat16).view(B, T, H, D).transpose(1, 2)
+    kv = torch.randn((B, T, 2 * Hkv * D), generator=g, device=cuda).to(torch.bfloat16)
+    k = kv[..., : Hkv * D].view(B, T, Hkv, D).transpose(1, 2)
+    v = kv[..., Hkv * D:].view(B, T, Hkv, D).transpose(1, 2)
+    n = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=True, window=100)
+    want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True, window=100)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n + 2
+    assert torch.equal(got, want)
 
 
 def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
