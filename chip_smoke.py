@@ -18,7 +18,8 @@ Phases (any failure exits non-zero):
 4. with every launch count set to 0, drive the per-query path again (the
    warm run, timed per query), print each region's mode and each kernel's
    launches (the fused pipeline's by mode), and require >= 3 fused-pipeline
-   launches (Q1, Q3, Q18), >= 1 merge-lookup launch (Q9), and q3's ``Agg``
+   launches (Q1, Q3, Q18), >= 1 merge-lookup call (Q9; two launches a
+   call: the tile ranges, then the lookup), and q3's ``Agg``
    and q18's ``Big`` recorded ``kernel-radix`` (the default fusion budget
    radix-marks both, P = 64 on OD) with one radix launch each; then (4b)
    print each radix region's C, P, cp and Lp, whether its partition blocks
@@ -32,7 +33,9 @@ Phases (any failure exits non-zero):
 6. time each kernel and its twin with CUDA events (mean over repeated
    launches after a warm-up), beside its least-time bound (bytes over
    3.35 TB/s or operations over 67 TFLOP/s, whichever is larger) and, for
-   the merge lookup, ``torch.searchsorted`` plus a gather; then profile one
+   the merge lookup, ``torch.searchsorted`` plus a gather and its tile
+   model (``merge_lookup_plain(..., tile=TILE)``, held against the kernel
+   bit for bit first); then profile one
    warm pass (``torch.profiler``: device time by op, device idle share);
 7. the TPC-H shared batch: the five queries' session plans merged by
    ``plan.merge_shared_scans`` (regions {lineitem: 5, orders: 4,
@@ -53,7 +56,8 @@ Phases (any failure exits non-zero):
    launch against its twin; the segment reduce, the new merge-lookup shape
    and every fused launch of the covariance batch timed beside their bounds
    (twins and library calls where they exist; the segment reduce's GB/s,
-   share of its bound, shared memory and ``-Xptxas -v`` report); warm walls
+   share of its bound, shared memory and ``-Xptxas -v`` report; the merge
+   lookup's two kernels' ``-Xptxas -v`` reports); warm walls
    and peak device memory of each path;
 9. llama3.2-3b inference at its published widths (28 layers, d_model
    3,072, 24/8 heads of 128, d_ff 8,192, vocab 128,256; random bf16 weights
@@ -113,7 +117,13 @@ Phases (any failure exits non-zero):
    three dictionary kernels are timed at SF 1's shapes (6,000,000
    l_orderkey probes into / a build of the 1,500,000 orderkeys, C =
    4,194,304) beside their bounds, twins and, for the sorted lookup,
-   ``searchsorted`` plus a gather;
+   ``searchsorted`` plus a gather; the sorted lookup also at the sweep's
+   largest lookup cell (2^21 keys, 8,388,608 probes, ordered and shuffled)
+   and at 2^16 and 2^17 keys (the global search's largest cell and the
+   sampled search's smallest), and a 16,384-key table under SF 1's probes
+   (the whole table staged in shared memory), each time held against its
+   twin and its search model (``stride=1``) first; its kernels'
+   ``-Xptxas -v`` reports;
 12. print the kernels' JSON line (the fused pipeline's entry with its modes:
    launches on the main paths and the largest error per mode, and the
    timed launches' sums), then ``{"ok": true, "device": ...}`` last.
@@ -252,6 +262,19 @@ def ptxas_lines(build, lib, entry_part):
                 entry = line.split("'")[1]
             elif entry and entry_part in entry and ("registers" in line or "spill" in line):
                 out.append((entry, line.split(":", 1)[-1].strip()))
+    return out
+
+
+def kernel_ptxas(build, lib, kernels):
+    """``{kernel: [line, ...]}``: ``-Xptxas -v``'s registers, shared memory
+    and spills for each named entry function of library ``lib`` (every
+    template instance), printed."""
+    out = {}
+    for name in kernels:
+        out[name] = [f"{entry[-40:]}: {line}" for entry, line in ptxas_lines(build, lib, name)]
+        check(out[name], f"no ptxas report for {lib}'s {name}")
+        for line in out[name]:
+            print(f"{lib} ptxas {name} ...{line}")
     return out
 
 
@@ -540,26 +563,93 @@ def union(intervals):
 
 
 def merge_row(torch, ml, real_ml, keys, vals, qs, reps):
-    """Time one merge-lookup shape: kernel, twin, searchsorted + gather."""
+    """Time one merge-lookup shape: kernel, twin, the kernel's tile model
+    (``tile=TILE``, held against the kernel first), searchsorted + gather."""
     C, V, n = keys.shape[0], vals.shape[1], qs.shape[0]
+    got, want = real_ml(keys, vals, qs), ml.merge_lookup_plain(keys, vals, qs, tile=ml.TILE)
+    torch.cuda.synchronize()
+    check(torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]),
+          f"merge lookup at C={C} V={V} n={n} differs from its tile model")
+    del got, want
     lo = int(torch.searchsorted(keys, qs[:1]).item()) if n else 0
     hi = int(torch.searchsorted(keys, qs[-1:], right=True).item()) if n else 0
     span = min(C, hi - lo + 1)  # table rows these sorted probes can touch
     nbytes = span * 4 * (1 + V) + n * 4 + n * (4 * V + 1)
-    nops = n * 13  # one compare per window search round
-    ms = timed(torch, lambda: real_ml(keys, vals, qs), reps)
+    nops = n * 13  # at most 13 compares a probe: a search over 4,096 staged keys
+    # device times (launches queued behind a sleep): at Q9's shape a call
+    # runs for less time than the wrapper takes on the host
+    ms = device_ms(torch, lambda: real_ml(keys, vals, qs), reps)
     plain_ms = timed(torch, lambda: ml.merge_lookup_plain(keys, vals, qs), reps)
+    model_ms = timed(torch, lambda: ml.merge_lookup_plain(keys, vals, qs, tile=ml.TILE), 3)
 
     def library():
         idx = torch.searchsorted(keys, qs).clamp_(max=C - 1)
         return vals[idx], keys[idx] == qs
 
-    lib_ms = timed(torch, library, reps)
-    row = {"C": C, "V": V, "n": n, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+    lib_ms = device_ms(torch, library, reps)
+    row = {"C": C, "V": V, "n": n, "ms": ms, "plain_ms": plain_ms, "model_ms": model_ms, "library_ms": lib_ms,
            "bytes": nbytes, "ops": nops, "bound_ms": bound_ms(nbytes, nops)}
-    print(f"merge lookup C={C} V={V} n={n}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+    print(f"merge lookup C={C} V={V} n={n}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, tile model {model_ms:.3f} ms, "
           f"searchsorted+gather {lib_ms:.3f} ms, bound {row['bound_ms']:.4f} ms")
     return row
+
+
+def sorted_row(torch, sl, real_sl, keys, vals, qs, reps, what):
+    """Time one sorted-lookup shape: kernel (its sample launch included),
+    twin, the kernel's search (``stride=1``), searchsorted + gather; the
+    kernel held against the twin and the search model first."""
+    C, V, n = keys.shape[0], vals.shape[1], qs.shape[0]
+    live = int(torch.searchsorted(keys, torch.tensor([2**31 - 1], dtype=torch.int32, device=keys.device)).item())
+    got = real_sl(keys, vals, qs)
+    for stride in (None, 1):
+        want = sl.sorted_lookup_plain(keys, vals, qs, stride=stride)
+        torch.cuda.synchronize()
+        check(torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]),
+              f"sorted lookup at {what} differs from the plain twin (stride={stride})")
+    del got, want
+    nbytes = n * 4 + n * (4 * V + 1) + live * (4 + 4 * V)  # a search reaches only the live prefix
+    nops = n * C.bit_length()
+
+    def library():
+        idx = torch.searchsorted(keys, qs).clamp_(max=C - 1)
+        return vals[idx], keys[idx] == qs
+
+    # device times, as merge_row takes them (the twin synchronizes: host clock)
+    path = sl.search_path(n, C, torch.cuda.get_device_properties(keys.device).multi_processor_count)
+    row = {"shape": what, "C": C, "live": live, "V": V, "n": n, "path": path,
+           "stride": sl.sample_stride(live) if path == "sampled" else 1,
+           "ms": device_ms(torch, lambda: real_sl(keys, vals, qs), reps),
+           "plain_ms": timed(torch, lambda: sl.sorted_lookup_plain(keys, vals, qs), max(2, reps // 4)),
+           "model_ms": timed(torch, lambda: sl.sorted_lookup_plain(keys, vals, qs, stride=1), 3),
+           "library_ms": device_ms(torch, library, reps), "bytes": nbytes, "ops": nops,
+           "bound_ms": bound_ms(nbytes, nops)}
+    print(f"sorted lookup {what} (C={C}, {live} live keys, {path}, S={row['stride']}, V={V}, n={n}): kernel {row['ms']:.3f} ms "
+          f"({row['ms'] / row['bound_ms']:.1f}x its bound {row['bound_ms']:.4f} ms), plain {row['plain_ms']:.3f} ms, "
+          f"search model {row['model_ms']:.3f} ms, searchsorted+gather {row['library_ms']:.3f} ms")
+    return row
+
+
+def sweep_lookups(torch, sl, real_sl, dev, sizes, seed):
+    """The sorted lookup at the installation sweep's lookup shapes: ``size``
+    distinct keys drawn from 1 .. 8·size into a table of
+    ``next_pow2(2·size)`` slots, 4·size hit probes, ordered and shuffled
+    (``costmodel.profiler.profile``'s largest lookup ratio)."""
+    from repro_torch.dicts import base as dbase
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = []
+    for size in sizes:
+        present = (torch.randperm(8 * size - 1, generator=gen, device=dev)[:size] + 1).to(torch.int32)
+        cap = dbase.next_pow2(max(2 * size, 256))
+        keys = torch.full((cap,), 2**31 - 1, dtype=torch.int32, device=dev)
+        keys[:size] = torch.sort(present).values
+        vals = torch.zeros((cap, 1), device=dev)
+        vals[:size] = torch.randn((size, 1), generator=gen, device=dev)
+        hits = present[torch.randint(0, size, (4 * size,), generator=gen, device=dev)]
+        for order, qs in (("ordered", torch.sort(hits).values), ("shuffled", hits)):
+            rows.append(sorted_row(torch, sl, real_sl, keys, vals, qs, 20, f"sweep 2^{size.bit_length() - 1} {order}"))
+        del present, keys, vals, hits
+    return rows
 
 
 def snowflake(n_fact, n_dim, seed):
@@ -891,6 +981,7 @@ def install_phase(torch, dev, refs, walls, root):
     from repro_torch.data import tpch
     from repro_torch.dicts import base as dbase
     from repro_torch.dicts import ht_linear, st_sorted
+    from repro_torch.kernels import build
     from repro_torch.kernels import fused_pipeline as fp
     from repro_torch.kernels import hash_build as hb
     from repro_torch.kernels import hash_probe as hp
@@ -1019,16 +1110,9 @@ def install_phase(torch, dev, refs, walls, root):
     hb_err = max(hb_err, check_dict(torch, dbase, {
         "hash_build": [((okeys, ones, cap, P, None), {}, (tk, tv))],
         "hash_probe": [((tk, tv, probes, P), {}, real_hp(tk, tv, probes, P))],
-        "sorted_lookup": [((st.keys, st.vals, shuffled), {}, real_sl(st.keys, st.vals, shuffled))],
-    }, "SF 1 shapes"))
+    }, "SF 1 shapes"))  # sorted_row holds the sorted lookup against its twin
     table_bytes = cap * (4 + 4 * V)  # keys and value rows, every slot read (probe) or written (build) once
     query_bytes = n * 4 + n * (4 * V + 1)
-    live_bytes = st.n * (4 + 4 * V)  # a search reaches only the live prefix, as merge_row counts it
-
-    def library():
-        idx = torch.searchsorted(st.keys, shuffled).clamp_(max=cap - 1)
-        return st.vals[idx], st.keys[idx] == shuffled
-
     rows = out["rows"] = {
         "hash_probe": {"C": cap, "V": V, "n": n, "ms": timed(torch, lambda: real_hp(tk, tv, probes, P), 20),
                        "plain_ms": timed(torch, lambda: hp.hash_probe_plain(tk, tv, probes, P), 3),
@@ -1036,16 +1120,26 @@ def install_phase(torch, dev, refs, walls, root):
         "hash_build": {"C": cap, "V": V, "n": n_o, "ms": timed(torch, lambda: real_hb(okeys, ones, cap, P, None), 20),
                        "plain_ms": timed(torch, lambda: hb.hash_build_plain(okeys, ones, cap, P, None), 3),
                        "library_ms": None, "bytes": n_o * (4 + 4 * V) + table_bytes, "ops": n_o * V},
-        "sorted_lookup": {"C": cap, "V": V, "n": n, "ms": timed(torch, lambda: real_sl(st.keys, st.vals, shuffled), 20),
-                          "plain_ms": timed(torch, lambda: sl.sorted_lookup_plain(st.keys, st.vals, shuffled), 5),
-                          "library_ms": timed(torch, library, 20), "bytes": query_bytes + live_bytes,
-                          "ops": n * cap.bit_length()},
     }
     for name, r in rows.items():
         r["bound_ms"] = bound_ms(r["bytes"], r["ops"])
         print(f"{name} C={cap} V={V} n={r['n']}: kernel {r['ms']:.3f} ms ({r['ms'] / r['bound_ms']:.1f}x its bound "
-              f"{r['bound_ms']:.4f} ms, bytes), plain {r['plain_ms']:.3f} ms"
-              + ("" if r["library_ms"] is None else f", searchsorted+gather {r['library_ms']:.3f} ms"))
+              f"{r['bound_ms']:.4f} ms, bytes), plain {r['plain_ms']:.3f} ms")
+    rows["sorted_lookup"] = sorted_row(torch, sl, real_sl, st.keys, st.vals, shuffled, 20, "SF 1 shuffled l_orderkey")
+
+    # a small dictionary under SF 1's probes: the first 16,384 orderkeys in
+    # 32,768 slots, the whole table staged on chip
+    small_k = torch.cat([st.keys[:16_384], torch.full((16_384,), dbase.PAD, dtype=torch.int32, device=dev)])
+    small_v = torch.cat([st.vals[:16_384], torch.zeros((16_384, V), device=dev)])
+    rows["sorted_lookup_small"] = sorted_row(torch, sl, real_sl, small_k, small_v, shuffled, 20,
+                                             "16,384 orderkeys, SF 1 shuffled l_orderkey")
+    del small_k, small_v
+
+    stamp("11. the sorted lookup at the sweep's shapes")
+    # the largest cell the global search takes, the smallest and the largest the sampled search takes
+    out["sweep_lookups"] = sweep_lookups(torch, sl, real_sl, dev, (2**16, 2**17, 2**21), SEED)
+    out["sorted_ptxas"] = kernel_ptxas(build, "sorted_lookup",
+                                       ("sample_kernel", "sorted_lookup_kernel", "global_lookup_kernel"))
     out["hb_err"] = hb_err
     out["seconds"] = time.perf_counter() - t_phase
     print(f"installation phase: {out['seconds']:.1f}s")
@@ -1163,7 +1257,7 @@ def main() -> int:
     check(launches["per_query"]["fused_pipeline"] >= 3, "fewer than 3 fused-pipeline launches (Q1, Q3, Q18)")
     check(launches["per_query"]["merge_lookup"] >= 1, "no merge-lookup launch (Q9)")
     check(len(fp_calls) == launches["per_query"]["fused_pipeline"]
-          and len(ml_calls) == launches["per_query"]["merge_lookup"],
+          and 2 * len(ml_calls) == launches["per_query"]["merge_lookup"],  # a call: ranges, then lookup
           "recorded calls disagree with the launch counts")
     for q, sym in RADIX_REGIONS:
         check(modes[q].get(sym) == "kernel-radix", f"{q}'s {sym} ran {modes[q].get(sym)}, not kernel-radix")
@@ -1383,6 +1477,7 @@ def main() -> int:
     print(json.dumps({"covariance_batch_fused": cov_fused}))
     (mkeys, mvals, mqs), _, _ = calls["merge_lookup"][-1]
     ml_rows.append(merge_row(torch, ml, real_ml, mkeys, mvals, mqs, 10))
+    ml_ptxas = kernel_ptxas(build, "merge_lookup", ("merge_ranges_kernel", "merge_lookup_kernel"))
     (skeys, svals), _, _ = calls["segment_reduce"][0]
     del calls, mkeys, mvals, mqs
     gc.collect()
@@ -1776,7 +1871,8 @@ def main() -> int:
         entry("hash_build", "src/repro_torch/kernels/csrc/hash_build.cu", "src/repro/kernels/hash_build.py:83",
               [inst["rows"]["hash_build"]], hb_err, None),
     ]
-    print(json.dumps({"regions": regions, "merge_lookups": ml_rows, "segment_reduce": sr_row,
+    print(json.dumps({"regions": regions, "merge_lookups": ml_rows, "merge_lookup_ptxas": ml_ptxas,
+                      "sorted_lookup_ptxas": inst["sorted_ptxas"], "segment_reduce": sr_row,
                       "warm_query_ms": {q: walls[q] * 1e3 for q in QUERIES},
                       "tpch_batch_warm_ms": batch_warm * 1e3,
                       "indb_ml_warm_ms": {k: v * 1e3 for k, v in warm.items()},

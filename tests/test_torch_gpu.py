@@ -24,7 +24,13 @@ windows of 40 and 200, strided heads bit for bit), and a reduced
 llama forward on the card launches it once per layer.  The dictionary
 kernels (hash probe, sorted lookup, hash build) run against their twins at
 small and TPC-H SF 0.01 shapes, through the families' routes too, and the
-installation sweep's smallest cell launches all three.
+installation sweep's smallest cell launches all three.  The merge lookup
+runs across tile edges (n = 1 to 200,003) on staged tiles, tiles searched in
+global memory, one key, window offset 1 and EMPTY/PAD probes, V = 1 to 9;
+the sorted lookup on each of its paths (the global search, the table on
+chip, sampled at S = 2, 4 and 32; odd C, a live count no multiple of S,
+fewer keys than a stride, runs of equal keys), both with unaligned inputs,
+bit for bit.
 """
 import contextlib
 import dataclasses
@@ -147,10 +153,70 @@ def test_merge_lookup_kernel_matches_plain(cuda, V):
         before = ml.merge_lookup.launches
         gv, gf = ml.merge_lookup(k, v, q)
         torch.cuda.synchronize()
-        assert ml.merge_lookup.launches == before + 1
+        assert ml.merge_lookup.launches == before + 2  # the tile ranges, then the lookup
         pv, pf = ml.merge_lookup_plain(k, v, q)
         assert torch.equal(gf, pf)
         assert torch.equal(gv, pv)
+
+
+def _merge_edge(case, n, V, rng):
+    """(keys [C], vals [C, V], non-decreasing probes, whether every tile's
+    range is staged) at ``n`` probes into a 2^17-key PAD-tailed table."""
+    C = 1 << 17
+    live = np.sort(rng.choice(10**8, C - 999, replace=False)).astype(np.int32)
+    keys = np.concatenate([live, np.full(999, dbase.PAD, np.int32)])
+    vals = rng.normal(size=(C, V)).astype(np.float32)
+    vals[C - 999:] = 0.0
+    if case == "dense":  # about four probes a key: every tile staged
+        s0 = int(rng.integers(0, C // 2))
+        pos = np.sort(rng.integers(s0, s0 + n // 4 + 1, n))
+        qs = keys[pos] + (rng.random(n) < 0.3)
+    elif case == "sparse":  # probes spread over the table: tiles search in global memory
+        qs = rng.integers(-10, 10**8 + 10, n)
+    elif case == "one_key":
+        qs = np.full(n, keys[C // 3])
+    elif case == "window_offset_1":  # keys at offset 1 of every 2,048-key window, and around them
+        at = np.arange(1, C - 999, 2048)
+        qs = np.resize(np.concatenate([keys[at], keys[at - 1], keys[at + 1]]), n)
+    else:  # EMPTY, PAD, below the first and past the last key
+        m = max(n, 8)
+        qs = np.resize(np.concatenate([np.full(m // 4, dbase.EMPTY), keys[rng.integers(0, C - 999, m // 2)],
+                                       [keys[0] - 1, keys[C - 1000] + 1], np.full(m - m // 4 - m // 2 - 2, dbase.PAD)]), n)
+    qs = np.sort(qs).astype(np.int32)
+    return keys, vals, qs
+
+
+@pytest.mark.parametrize("V", [1, 3, 5, 9])
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 3 * 4096 + 5, 200_003])
+@pytest.mark.parametrize("case", ["dense", "sparse", "one_key", "window_offset_1", "pad_empty"])
+def test_merge_lookup_kernel_edges(cuda, case, n, V):
+    """The kernel against its twin bit for bit across tile edges: staged
+    tiles, tiles whose range overflows the stage (global search), one key,
+    window offset 1, EMPTY/PAD probes; V = 9 takes the kernel's run-time-V
+    instance; queries read one int32 off 16-byte alignment."""
+    rng = np.random.default_rng(n + V)
+    keys, vals, qs = _merge_edge(case, n, V, rng)
+    k, v = torch.from_numpy(keys).to(cuda), torch.from_numpy(vals).to(cuda)
+    q = torch.from_numpy(qs).to(cuda)
+    _, count = ml.tile_ranges(k, q)
+    staged = count <= ml.STAGE
+    if case in ("dense", "one_key"):
+        assert bool(staged.all())
+    if case == "sparse" and 1 < n < 100_000:  # a tile spans more keys than the stage holds
+        assert not bool(staged.all())
+    qpad = torch.cat([q[:1], q])  # the same probes, the view one int32 past an aligned start
+    for probes in (q, qpad[1:]):
+        before = ml.merge_lookup.launches
+        gv, gf = ml.merge_lookup(k, v, probes)
+        torch.cuda.synchronize()
+        assert ml.merge_lookup.launches == before + 2
+        for tile in (None, ml.TILE):  # the searchsorted twin, the kernel's tile model
+            pv, pf = ml.merge_lookup_plain(k, v, probes, tile=tile)
+            assert torch.equal(gf, pf) and torch.equal(gv, pv)
+        wv, wf = dbase.sorted_lookup(k, v, probes)
+        assert torch.equal(gf, wf) and torch.equal(gv, wv)
+    if case == "window_offset_1":
+        assert bool(gf.all())
 
 
 @pytest.mark.parametrize("choices", sorted(CHOICE_SETS))
@@ -668,6 +734,75 @@ def test_dict_kernels_match_plain(cuda, shape):
     fv, ff = ht_linear.lookup(t, q, valid=q % 2 == 0)
     assert torch.equal(ff, hp.hash_probe_plain(t.keys, t.vals, q)[1] & (q % 2 == 0))
     assert hb.hash_build.launches == counts[0] + 3 and hp.hash_probe.launches == counts[1] + 5
+
+
+def _sorted_edge(case, rng):
+    """(sorted PAD-tailed keys [C], vals [C, 3], shuffled probes)."""
+    if case == "sampled_s2":  # more keys than the sample holds: S = 2, a live count no multiple of it
+        live, C = np.sort(rng.choice(10**7, 60_001, replace=False)), 1 << 17
+    elif case == "sampled_s4":
+        live, C = np.sort(rng.choice(10**7, 150_001, replace=False)), 1 << 18
+    elif case == "sampled_s32":  # SF 1's stride: 1,500,000 live keys of 4,194,304
+        live, C = np.sort(rng.choice(10**8, 1_500_000, replace=False)), 1 << 22
+    elif case == "full_no_pad":  # no PAD tail, C = 2^16 + 3 (odd): S = 2 over every slot
+        live, C = np.sort(rng.choice(10**7, (1 << 16) + 3, replace=False)), (1 << 16) + 3
+    elif case == "dup_runs_sampled":  # runs of equal keys across bucket edges, S = 4
+        live = np.sort(np.repeat(rng.choice(10**6, 3000, replace=False), rng.integers(1, 90, 3000)))[:130_000]
+        C = 1 << 18
+    elif case == "below_stride":
+        live, C = np.sort(rng.choice(1000, 5, replace=False)), 7
+    elif case == "dup_runs":  # on chip
+        live, C = np.sort(np.repeat(rng.choice(10**5, 500, replace=False), rng.integers(1, 90, 500))), 40_000
+        live = live[:39_000]
+    else:  # odd C on chip, every key's neighbours, EMPTY and PAD
+        live, C = np.sort(rng.choice(10**6, 9_999, replace=False)), 12_345
+    keys = np.full(C, dbase.PAD, np.int32)
+    keys[: len(live)] = live
+    vals = rng.normal(size=(C, 3)).astype(np.float32)
+    vals[len(live):] = 0.0
+    L = len(live)
+    qs = np.concatenate([keys[:L], keys[:L] - 1, keys[:L] + 1, rng.integers(-10, 10**7 + 10, 5000),
+                         [dbase.PAD, dbase.EMPTY, keys[0] - 1, dbase.PAD - 1]]).astype(np.int32)
+    rng.shuffle(qs)
+    return keys, vals, qs
+
+
+SORTED_EDGES = ["sampled_s2", "sampled_s4", "sampled_s32", "full_no_pad", "dup_runs_sampled",
+                "below_stride", "dup_runs", "odd_c"]
+
+
+@pytest.mark.parametrize("path", ["auto", "global", "staged"])
+@pytest.mark.parametrize("case", SORTED_EDGES)
+def test_sorted_lookup_kernel_edges(cuda, monkeypatch, case, path):
+    """The kernel against its twins bit for bit on each path (the one
+    ``search_path`` picks, the global search, and the staged search: the
+    whole table on chip or sampled at S = 2, 4 and 32): every key and its
+    neighbours, so every sampled key and bucket edge, an odd C, fewer keys
+    than a stride, runs of equal keys, EMPTY/PAD probes; the sample launch
+    counts."""
+    rng = np.random.default_rng(SORTED_EDGES.index(case))
+    keys, vals, qs = _sorted_edge(case, rng)
+    k, v, q = (torch.from_numpy(a).to(cuda) for a in (keys, vals, qs))
+    C = len(keys)
+    assert (C > sl.SAMPLE_KEYS) == case.startswith(("sampled", "full", "dup_runs_sampled"))
+    taken = sl.search_path(len(qs), C, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    if path != "auto":
+        taken = path if path == "global" else "table" if C <= sl.SAMPLE_KEYS else "sampled"
+        monkeypatch.setattr(sl, "search_path", lambda n, C, sms: taken)
+    before = sl.sorted_lookup.launches
+    gv, gf = sl.sorted_lookup(k, v, q)
+    torch.cuda.synchronize()
+    assert sl.sorted_lookup.launches == before + (2 if taken == "sampled" else 1)
+    for stride in (None, 1):  # the searchsorted twin, the kernel's search
+        pv, pf = sl.sorted_lookup_plain(k, v, q, stride=stride)
+        assert torch.equal(gf, pf) and torch.equal(gv, pv)
+    wv, wf = dbase.sorted_lookup(k, v, q)
+    assert torch.equal(gf, wf) and torch.equal(gv, wv)
+    # unaligned probes and table: one int32 off a 16-byte boundary
+    ko = torch.cat([k[:1], k])[1:]
+    qo = torch.cat([q[:1], q])[1:]
+    gv, gf = sl.sorted_lookup(ko, v, qo)
+    assert torch.equal(gf, wf) and torch.equal(gv, wv)
 
 
 def test_dict_kernels_refuse_what_they_do_not_take(cuda):
