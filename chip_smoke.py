@@ -31,7 +31,9 @@ Phases (any failure exits non-zero):
    the tolerance above (atomics fold float32 sums in another order), the
    dictionary kernels' probes and lookups bit for bit;
 6. time each kernel and its twin with CUDA events (mean over repeated
-   launches after a warm-up), beside its least-time bound (bytes over
+   launches after a warm-up; a fused-pipeline launch on the device clock,
+   its launches queued behind a device sleep, as it runs for less time
+   than the host takes to launch it), beside its least-time bound (bytes over
    3.35 TB/s or operations over 67 TFLOP/s, whichever is larger) and, for
    the merge lookup, ``torch.searchsorted`` plus a gather and its tile
    model (``merge_lookup_plain(..., tile=TILE)``, held against the kernel
@@ -123,8 +125,15 @@ Phases (any failure exits non-zero):
    sampled search's smallest), and a 16,384-key table under SF 1's probes
    (the whole table staged in shared memory), each time held against its
    twin and its search model (``stride=1``) first; its kernels'
-   ``-Xptxas -v`` reports;
-12. print the kernels' JSON line (the fused pipeline's entry with its modes:
+   ``-Xptxas -v`` reports; the hash build at SF 1 also on the device
+   clock with the path ``build_path`` picks, and at the sweep's largest
+   duplicate-heavy cells (2^18 shuffled rows into 32 and into 65,536 keys)
+   beside their bounds, each held against its twin first, and its kernels'
+   ``-Xptxas -v`` reports (the global claim, the private tables, the
+   partitioned build's count, scan, scatter, slice and overflow launches);
+12. print the ``-Xptxas -v`` report of one generated fused region of each
+   dictionary-terminal path (a block-private table, device memory, radix)
+   and the kernels' JSON line (the fused pipeline's entry with its modes:
    launches on the main paths and the largest error per mode, and the
    timed launches' sums), then ``{"ok": true, "device": ...}`` last.
 
@@ -248,13 +257,13 @@ def stamp(phase):
     print(f"[{time.perf_counter() - START:.1f}s] {phase}", flush=True)
 
 
-def ptxas_lines(build, lib, entry_part):
+def ptxas_lines(build, lib, entry_part, where=None):
     """What ``-Xptxas -v`` reported (registers, shared memory, spills) for
-    the entry functions of library ``lib`` whose names contain
-    ``entry_part``, as ``(entry, line)`` pairs."""
+    the entry functions of library ``lib`` (the builds ``where`` keeps, if
+    given) whose names contain ``entry_part``, as ``(entry, line)`` pairs."""
     out = []
     for rec in build.BUILDS:
-        if rec.name != lib:
+        if rec.name != lib or (where is not None and not where(rec)):
             continue
         entry = None
         for line in rec.ptxas.splitlines():
@@ -265,16 +274,40 @@ def ptxas_lines(build, lib, entry_part):
     return out
 
 
-def kernel_ptxas(build, lib, kernels):
+def kernel_ptxas(build, lib, kernels, where=None, tag=""):
     """``{kernel: [line, ...]}``: ``-Xptxas -v``'s registers, shared memory
     and spills for each named entry function of library ``lib`` (every
-    template instance), printed."""
+    template instance; of the builds ``where`` keeps), printed."""
     out = {}
     for name in kernels:
-        out[name] = [f"{entry[-40:]}: {line}" for entry, line in ptxas_lines(build, lib, name)]
+        out[name] = [f"{entry[-40:]}: {line}" for entry, line in ptxas_lines(build, lib, name, where)]
         check(out[name], f"no ptxas report for {lib}'s {name}")
         for line in out[name]:
-            print(f"{lib} ptxas {name} ...{line}")
+            print(f"{lib}{tag} ptxas {name} ...{line}")
+    return out
+
+
+def fused_ptxas(build):
+    """The ptxas report of one generated region of each dictionary-terminal
+    path: claims in a block-private table (PRIV), in device memory, and a
+    radix region (its partitioned terminal where one was built)."""
+    def source(rec):
+        return open(os.path.splitext(rec.path)[0] + ".cu").read()
+
+    regions = [rec for rec in build.BUILDS if rec.name == "fused_region"]
+    out = {}
+    for path, entry, marker in (("private", "fp_dict_kernel", "constexpr bool PRIV = true;"),
+                                ("device memory", "fp_dict_kernel", "constexpr bool PRIV = false;"),
+                                ("radix, partitioned terminal", "fp_radix_dict_kernel", "true>, cudaFuncAttribute"),
+                                ("radix", "fp_radix_dict_kernel", "fp_radix_dict_kernel")):
+        rec = next((r for r in regions if entry in r.ptxas and marker in source(r)), None)
+        if rec is None and path == "radix, partitioned terminal":
+            continue
+        check(rec is not None, f"no generated region of the {path} terminal was built")
+        out[path] = kernel_ptxas(build, "fused_region", (entry,), where=lambda r, _rec=rec: r is _rec,
+                                 tag=f" ({path})")[entry]
+        if path.startswith("radix"):
+            break
     return out
 
 
@@ -1121,10 +1154,38 @@ def install_phase(torch, dev, refs, walls, root):
                        "plain_ms": timed(torch, lambda: hb.hash_build_plain(okeys, ones, cap, P, None), 3),
                        "library_ms": None, "bytes": n_o * (4 + 4 * V) + table_bytes, "ops": n_o * V},
     }
+    props = torch.cuda.get_device_properties(dev)
+    card = props.multi_processor_count, props.L2_cache_size
+    rows["hash_build"].update(path=hb.build_path(n_o, cap, V, *card),
+                              device_ms=device_ms(torch, lambda: real_hb(okeys, ones, cap, P, None), 20))
     for name, r in rows.items():
         r["bound_ms"] = bound_ms(r["bytes"], r["ops"])
         print(f"{name} C={cap} V={V} n={r['n']}: kernel {r['ms']:.3f} ms ({r['ms'] / r['bound_ms']:.1f}x its bound "
-              f"{r['bound_ms']:.4f} ms, bytes), plain {r['plain_ms']:.3f} ms")
+              f"{r['bound_ms']:.4f} ms, bytes), plain {r['plain_ms']:.3f} ms"
+              + (f"; path {r['path']}, {r['device_ms']:.4f} ms on the device clock" if "path" in r else ""))
+    # the sweep's largest duplicate-heavy insert cells (the profiler's draws):
+    # 2^18 rows into 32 keys (8,192 a key) and into 65,536 keys (4 a key)
+    rng = np.random.default_rng(SEED)
+    out["hash_build_dups"] = []
+    for size, dup in ((32, 8192), (65_536, 4)):
+        present = rng.choice(np.arange(1, 8 * size, dtype=np.int32), size, replace=False)
+        n_dup, dcap = min(size * dup, 2**18), dbase.next_pow2(max(2 * size, 256))
+        dk = torch.from_numpy(rng.choice(present, n_dup, replace=True)).to(dev)
+        dv = torch.from_numpy(rng.normal(size=(n_dup, 1)).astype(np.float32)).to(dev)
+        err = check_dict(torch, dbase, {"hash_build": [((dk, dv, dcap, P, None), {}, real_hb(dk, dv, dcap, P, None))]},
+                         f"sweep cell {n_dup} rows into {size} keys")
+        nbytes = n_dup * 8 + dcap * 8
+        r = {"keys": size, "n": n_dup, "C": dcap, "path": hb.build_path(n_dup, dcap, 1, *card),
+             "ms": device_ms(torch, lambda: real_hb(dk, dv, dcap, P, None), 20), "bytes": nbytes,
+             "bound_ms": bound_ms(nbytes, n_dup), "max_abs_err": err}
+        out["hash_build_dups"].append(r)
+        print(f"hash_build, the sweep's cell of {n_dup} shuffled rows into {size} keys (C={dcap}, path {r['path']}): "
+              f"{r['ms']:.4f} ms on the device clock, {r['ms'] / r['bound_ms']:.1f}x its bound {r['bound_ms']:.4f} ms "
+              f"(bytes), max |kernel - twin| {err:.3g}")
+        hb_err = max(hb_err, err)
+    out["hash_build_ptxas"] = kernel_ptxas(build, "hash_build", ("global_kernel", "private_kernel", "count_kernel",
+                                                                 "scan_kernel", "scatter_kernel", "slice_kernel",
+                                                                 "overflow_kernel"))
     rows["sorted_lookup"] = sorted_row(torch, sl, real_sl, st.keys, st.vals, shuffled, 20, "SF 1 shuffled l_orderkey")
 
     # a small dictionary under SF 1's probes: the first 16,384 orderkeys in
@@ -1273,7 +1334,7 @@ def main() -> int:
         err = check_fused(torch, fp, dbase, [call], "per-query", fp_mode_err)
         fp_err = max(fp_err, err)
         nbytes, nops = fp.roofline(*args, **kw)
-        ms = timed(torch, lambda: real_fp(*args, **kw), 20)
+        ms = device_ms(torch, lambda: real_fp(*args, **kw), 20)
         plain_ms = timed(torch, lambda: fp.fused_pipeline_plain(*args, **kw), 3)
         regions.append({
             "term": program.term[0], "mode": fused_mode(kw), "rows": int(args[2].shape[0]),
@@ -1318,7 +1379,7 @@ def main() -> int:
             if name == "staged":
                 check(fp.radix_staging(vargs[0], vargs[3])[0], f"{q}'s {sym} at cp={STAGED_CP} was not staged")
                 fp_err = max(fp_err, check_fused(torch, fp, dbase, [(vargs, vkw, vout)], "staged radix", fp_mode_err))
-            variants[name] = (timed(torch, lambda: real_fp(*vargs, **vkw), 20), vwall)
+            variants[name] = (device_ms(torch, lambda: real_fp(*vargs, **vkw), 20), vwall)
         radix_rows.append({
             "query": q, "region": sym, "C": rd.cp * n_parts, "P": n_parts, "cp": rd.cp, "Lp": lp,
             "staged": staged, "smem_bytes": smem, "rows": int(rargs[1].shape[0]), "routed_rows": row["rows"],
@@ -1470,7 +1531,7 @@ def main() -> int:
     for args, kw, _ in calls["fused_pipeline"][:batch_fused]:
         nbytes, nops = fp.roofline(*args, **kw)
         cov_fused.append({"term": args[0].term[0], "out": list(args[0].out[:2]), "rows": int(args[2].shape[0]),
-                          "ms": timed(torch, lambda: real_fp(*args, **kw), 3), "bytes": nbytes, "ops": nops,
+                          "ms": device_ms(torch, lambda: real_fp(*args, **kw), 3), "bytes": nbytes, "ops": nops,
                           "bound_ms": bound_ms(nbytes, nops)})
         print(f"covariance fused {cov_fused[-1]['term']} {cov_fused[-1]['out']}: kernel {cov_fused[-1]['ms']:.3f} ms, "
               f"bound {cov_fused[-1]['bound_ms']:.4f} ms")
@@ -1788,7 +1849,7 @@ def main() -> int:
         nbytes, nops = fp.roofline(*args, **kw)
         # an init= launch folds into the recorded state again each call: the
         # same work, with every key of the chunk already claimed after the first
-        ms = timed(torch, lambda: real_fp(*args, **kw), 10)
+        ms = device_ms(torch, lambda: real_fp(*args, **kw), 10)
         plain_ms = timed(torch, lambda: fp.fused_pipeline_plain(*args, **kw), 3)
         regions.append({"term": key[0], "mode": key[3], "rows": key[1], "out": list(key[2]), "ms": ms,
                         "plain_ms": plain_ms, "bytes": nbytes, "ops": nops, "bound_ms": bound_ms(nbytes, nops),
@@ -1803,6 +1864,9 @@ def main() -> int:
         print(f"{fold['region']} fold a pass: {fold['chunks']} launches of {fold.get('chunk_ms', float('nan')):.3f} ms "
               f"+ one build of {fold['final_build_ms']:.2f} ms")
     del fused_rows, dec_groups
+
+    # one generated region of each dictionary-terminal path, built by now
+    fused_ptx = fused_ptxas(build)
 
     # -- 11. the installation stage, then TPC-H SF 1 under the learned Δ -------
     inst = install_phase(torch, dev, refs, walls, os.path.dirname(os.path.abspath(__file__)))
@@ -1872,7 +1936,8 @@ def main() -> int:
               [inst["rows"]["hash_build"]], hb_err, None),
     ]
     print(json.dumps({"regions": regions, "merge_lookups": ml_rows, "merge_lookup_ptxas": ml_ptxas,
-                      "sorted_lookup_ptxas": inst["sorted_ptxas"], "segment_reduce": sr_row,
+                      "sorted_lookup_ptxas": inst["sorted_ptxas"], "fused_ptxas": fused_ptx,
+                      "segment_reduce": sr_row,
                       "warm_query_ms": {q: walls[q] * 1e3 for q in QUERIES},
                       "tpch_batch_warm_ms": batch_warm * 1e3,
                       "indb_ml_warm_ms": {k: v * 1e3 for k, v in warm.items()},

@@ -37,19 +37,23 @@ The reference's three further modes are here too:
   RLE) and the row function reads each row straight from its encoded words.
 
 What bounds it on an H100: device-memory traffic and, for a dictionary
-terminal, atomics on the accumulator.  The first design is right and
-simple: a thread per row in a grid-stride loop, dictionaries and payload
-slabs read from device memory through L2, an ``atomicCAS`` claim per
-accumulated row, ``atomicAdd`` for sum lanes and CAS loops for min/max —
-into a block-private shared-memory copy of the value lanes when the
-accumulator holds at most ``PRIV_FLOATS`` of them, flushed once per block —
-and a block reduction then one atomic per lane for a scalar Reduce.  In
-radix mode a block walks a run of tiles instead and, where the partition's
-key slab (and directory) fits in shared memory (``STAGE_BYTES``), stages it
-there once per partition it meets; a larger block is read through L2 (see
-:func:`radix_staging`).  ``init=`` accumulates into the carried tensors in
-place (no copy of ``capacity·(1+V)·4`` bytes a fold step).  Warp-aggregated
-atomics and the rest of the speed work are later PRs'.
+terminal, claims and atomics on the accumulator.  A thread takes a row in a
+grid-stride loop that moves a whole warp at a time; dictionaries and payload
+slabs are read from device memory through L2.  The terminal claims and
+combines as ``csrc/claim_table.cuh`` does it: the warp folds its live rows
+by key (``__match_any_sync`` and shuffles), so one lane a distinct key
+claims (``atomicCAS``, its first read a plain L1-cached load) and combines
+(``atomicAdd`` for sum lanes, CAS loops for min/max).  When the
+accumulator holds at most ``PRIV_FLOATS`` value lanes, each block claims in
+a private copy in shared memory first — keys beside the lanes, in the
+accumulator's probe layout — and flushes its occupied slots once, one claim
+a key; the grid is then the blocks resident at once.  A scalar Reduce
+combines per block, then one atomic per lane.  In radix mode a block walks
+a run of tiles instead and, where the partition's key slab (and directory)
+fits in shared memory (``STAGE_BYTES``), stages it there once per partition
+it meets; a larger block is read through L2 (see :func:`radix_staging`).
+``init=`` accumulates into the carried tensors in place (no copy of
+``capacity·(1+V)·4`` bytes a fold step).
 """
 from __future__ import annotations
 
@@ -68,7 +72,7 @@ from . import decode as DK
 FAMILIES = ("ht_linear", "ht_twochoice", "st_sorted", "st_blocked")
 ROW_BLOCK = 1024  # rows a radix tile holds (the reference's tile)
 ACC_KIND = {"ht_linear": 0, "ht_twochoice": 1}  # accumulator probe layouts
-#: value lanes (capacity x lanes) a block privatizes in shared memory (32 KB)
+#: value lanes (capacity x lanes) a block privatizes in shared memory (32 KB, keys beside them)
 PRIV_FLOATS = 8192
 _OP_ID = {"sum": 0, "min": 1, "max": 2}
 
@@ -709,10 +713,7 @@ class _Emitter:
                 "  const size_t slab = stage ? (size_t)(a.dict[RD].lp + a.dict[RD].nbp) * sizeof(int) : 0;",
             ]
         else:
-            launch += [
-                "  const long long want = (a.n + 255) / 256;",
-                "  const unsigned grid = (unsigned)(want < 4224 ? want : 4224);",
-            ]
+            launch.append("  const long long want = (a.n + 255) / 256;")
         priv = p.out[0] == "dict" and p.out[2] * V <= PRIV_FLOATS and not p.part_terminal
         cu = "(cudaStream_t)stream"
         if p.out[0] == "dict":
@@ -721,7 +722,7 @@ class _Emitter:
                 "  int* out_keys = (int*)ptrs[p++];",
                 "  float* out_vals = (float*)ptrs[p++];",
                 "  const int cap = (int)ints[q++];",
-                "  const size_t priv = PRIV ? (size_t)cap * NV * sizeof(float) : 0;",
+                "  const size_t priv = PRIV ? (size_t)cap * (NV + 1) * sizeof(float) : 0;",
             ]
             if p.radix:
                 pt = "true" if p.part_terminal else "false"
@@ -735,9 +736,21 @@ class _Emitter:
                         "  }",
                     ]
             else:
-                launch.append(
-                    f"  fp_dict_kernel<{kind}><<<grid, 256, priv, {cu}>>>(a, out_keys, out_vals, cap, {MAX_PROBES});"
-                )
+                k = f"fp_dict_kernel<{kind}>"
+                launch += [
+                    "  static int resident = 0;  // blocks resident at once at this region's shared memory",
+                    "  if (resident == 0) {",
+                    f"    cudaError_t e = cudaFuncSetAttribute({k}, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)priv);",
+                    "    int dev = 0, sms = 0, per_sm = 0;",
+                    "    if (e == cudaSuccess) e = cudaGetDevice(&dev);",
+                    "    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);",
+                    f"    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, {k}, 256, priv);",
+                    "    if (e != cudaSuccess) return (int)e;",
+                    "    resident = sms * (per_sm > 0 ? per_sm : 1);",
+                    "  }",
+                    "  const unsigned grid = (unsigned)(want < resident ? want : resident);",
+                    f"  {k}<<<grid, 256, priv, {cu}>>>(a, out_keys, out_vals, cap, {MAX_PROBES});",
+                ]
         else:
             launch.append("  float* out = (float*)ptrs[p++];")
             if p.radix:
@@ -751,7 +764,10 @@ class _Emitter:
                         "  }",
                     ]
             else:
-                launch.append(f"  fp_sum_kernel<<<grid, 256, 0, {cu}>>>(a, out);")
+                launch += [
+                    "  const unsigned grid = (unsigned)(want < 4224 ? want : 4224);",
+                    f"  fp_sum_kernel<<<grid, 256, 0, {cu}>>>(a, out);",
+                ]
         launch.append("  return (int)cudaGetLastError();")
         op_list = ", ".join(str(_OP_ID[o]) for o in ops)
         return "\n".join([
@@ -827,15 +843,15 @@ def _check(cond: bool, msg: str) -> None:
 def radix_staging(program: Program, dicts: Sequence[ResidentDict]) -> Tuple[bool, int]:
     """``(staged, bytes)``: whether a radix launch stages each partition's
     key slab (and st_blocked directory) in shared memory, and the dynamic
-    shared memory a block then asks for (the PRIV accumulator's value lanes
-    included).  A slab that does not fit under ``STAGE_BYTES`` is read
-    through L2 instead."""
+    shared memory a block then asks for (the PRIV accumulator's private
+    table, keys and value lanes, included).  A slab that does not fit
+    under ``STAGE_BYTES`` is read through L2 instead."""
     rd = next(dicts[d] for d, spec in enumerate(program.dicts) if spec.part)
     lp = rd.slabs[0].shape[1]
     nbp = rd.slabs[1].shape[1] if len(rd.slabs) > 1 else 0
     priv = 0
     if program.out[0] == "dict" and not program.part_terminal and program.out[2] * program.out[3] <= PRIV_FLOATS:
-        priv = program.out[2] * program.out[3] * 4
+        priv = program.out[2] * (program.out[3] + 1) * 4  # value lanes and keys
     staged = priv + (lp + nbp) * 4 <= STAGE_BYTES
     return staged, priv + ((lp + nbp) * 4 if staged else 0)
 

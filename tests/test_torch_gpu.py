@@ -130,6 +130,19 @@ def _same_items(got, want):
         np.testing.assert_allclose(got[k], want[k], rtol=RTOL, atol=ATOL)
 
 
+def _same_tables(got, want):
+    """Equal key sets and value rows within the tolerance, compared on the
+    device (tables of millions of slots)."""
+    def live_sorted(keys, vals):
+        keep = keys != dbase.EMPTY
+        order = torch.argsort(keys[keep])
+        return keys[keep][order], vals[keep][order]
+
+    (gk, gv), (wk, wv) = live_sorted(*got), live_sorted(*want)
+    assert torch.equal(gk, wk)
+    torch.testing.assert_close(gv, wv, rtol=RTOL, atol=ATOL)
+
+
 def _fused_calls_match_plain(calls):
     for args, kwargs, out in calls:
         want = fp.fused_pipeline_plain(*args, **kwargs)
@@ -948,3 +961,188 @@ def test_fused_encoded_and_init_kernel_matches_plain(cuda, n):
         carried = fp.fused_pipeline_plain(prog, [ids, col], live & (ids >= half), [], [], init=kept)
         _same_items(_dict_items(*both), _dict_items(*carried))
         _same_items(_dict_items(*both), g)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned claim terminal: the hash build's paths, the fused dictionary
+# terminal's warp aggregation and private tables
+# ---------------------------------------------------------------------------
+
+
+def _home(keys, cap):
+    return dbase.hash1(torch.from_numpy(keys), cap).numpy()
+
+
+def _hb_case(case, path, rng, sms):
+    """(keys, vals, valid, capacity, max_probes) of one hash-build case; the
+    edge case puts homes in the last three slots of the path's slices."""
+    cap, V, mp, valid = {"large": 2**18}.get(case, 4096), 1, ht_linear.MAX_PROBES, None
+    V = {"v3": 3, "v5": 5, "v8": 8}.get(case, 1)
+    cand = rng.choice(10**8, size=2_000_000, replace=False).astype(np.int32)
+    if case == "edges":
+        S = hb.slice_slots(cap, V, sms)
+        keys = np.repeat(cand[_home(cand, cap) % S >= S - min(3, S)][:1500], 3)
+    elif case == "wrap":
+        keys = np.repeat(cand[_home(cand, cap) >= cap - 4][:60], 5)
+    elif case == "drops":  # 40 keys on one home slot, 16 probes: 16 keys kept whole
+        mp = 16
+        keys = np.repeat(cand[_home(cand, cap) == cap // 2 + 5][:40], 7)
+    elif case == "one_key":
+        keys = np.full(200_003, 77, np.int32)
+    elif case == "n0":
+        keys = np.zeros((0,), np.int32)
+    elif case == "large":
+        keys = rng.integers(0, 2**17, 400_000).astype(np.int32)
+    else:  # masked, v1, v3, v5, v8: 8,192 rows a key on average into 1,000 keys
+        keys = rng.integers(0, 1000, 2**19 if case in ("masked", "v1") else 2**17).astype(np.int32)
+    keys = rng.permutation(keys)
+    if case == "masked":
+        valid = rng.random(len(keys)) < 0.5
+    vals = rng.normal(size=(len(keys), V)).astype(np.float32)
+    return keys, vals, valid, cap, mp
+
+
+HB_CASES = ["edges", "wrap", "drops", "one_key", "masked", "v1", "v3", "v5", "v8", "n0", "large"]
+
+
+@pytest.mark.parametrize("path,case", [(p, c) for p in hb.PATHS for c in HB_CASES if (p, c) != ("private", "large")])
+def test_hash_build_paths_match_plain(cuda, monkeypatch, path, case):
+    """Each hash-build path (forced) against the twin: equal key sets and sums
+    within the tolerance, a dropped key dropped whole, the same count kept,
+    the probe finding every kept key in the kernel's table."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    rng = np.random.default_rng(HB_CASES.index(case))
+    keys, vals, valid, cap, mp = _hb_case(case, path, rng, sms)
+    k, v = torch.from_numpy(keys).to(cuda), torch.from_numpy(vals).to(cuda)
+    m = None if valid is None else torch.from_numpy(valid).to(cuda)
+    monkeypatch.setattr(hb, "build_path", lambda n, C, V, s, l2: path)
+    before = hb.hash_build.launches
+    tk, tv = hb.hash_build(k, v, cap, mp, m)
+    torch.cuda.synchronize()
+    assert hb.hash_build.launches == before + (hb.LAUNCHES[path] if len(keys) else 0)
+    got, want = _dict_items(tk, tv), _dict_items(*hb.hash_build_plain(k, v, cap, mp, m))
+    if case == "drops":
+        assert len(got) == len(want) == mp
+        sums = {int(x): vals[keys == x].sum(0) for x in np.unique(keys)}
+        for x, row in got.items():
+            np.testing.assert_allclose(row, sums[x], rtol=RTOL, atol=ATOL)
+    else:
+        _same_items(got, want)
+    if case == "n0":
+        assert not got and (tk == dbase.EMPTY).all() and not tv.any()
+        return
+    qs = torch.from_numpy(np.unique(keys)).to(cuda)
+    gv, gf = hp.hash_probe(tk, tv, qs, mp)
+    wv, wf = hp.hash_probe_plain(tk, tv, qs, mp)
+    assert torch.equal(gf, wf) and torch.equal(gv, wv)
+    assert set(qs[gf].tolist()) == set(got)
+
+
+def test_hash_build_rule_paths_on_card(cuda):
+    """The rule's own pick, against the twin, with the probe over the
+    kernel's table: SF 10's orderkeys (a table larger than L2:
+    partitioned), SF 1's (global), 2^18 rows into 64 keys (private), 2^18
+    into 2^15 keys (global)."""
+    rng = np.random.default_rng(19)
+    props = torch.cuda.get_device_properties(cuda)
+    i = np.arange(15_000_000)
+    sf10 = ((i // 8) * 32 + i % 8 + 1).astype(np.int32)
+    shapes = [sf10, sf10[:1_500_000], rng.integers(1, 65, 2**18).astype(np.int32),
+              rng.integers(1, 2**15 + 1, 2**18).astype(np.int32)]
+    for keys, cap, want in zip(shapes, (2**25, 4_194_304, 256, 65_536), ("partitioned", "global", "private", "global")):
+        assert hb.build_path(len(keys), cap, 1, props.multi_processor_count, props.L2_cache_size) == want
+        k = torch.from_numpy(rng.permutation(keys)).to(cuda)
+        v = torch.randn((len(keys), 1), device=cuda)
+        tk, tv = hb.hash_build(k, v, cap, ht_linear.MAX_PROBES)
+        pk, pv = hb.hash_build_plain(k, v, cap, ht_linear.MAX_PROBES)
+        torch.cuda.synchronize()
+        _same_tables((tk, tv), (pk, pv))
+        q = torch.from_numpy(rng.integers(0, 2 * int(keys.max()), 100_000).astype(np.int32)).to(cuda)
+        for table in ((tk, tv), (pk, pv)):
+            gv, gf = hp.hash_probe(*table, q)
+            wv, wf = hp.hash_probe_plain(*table, q)
+            assert torch.equal(gf, wf) and torch.equal(gv, wv)
+        assert torch.equal(hp.hash_probe(tk, tv, q)[1], hp.hash_probe(pk, pv, q)[1])
+
+
+def _terminal_program(acc_ds, cap, ops):
+    V = len(ops)
+    return fp.Program(("i32",) + ("f32",) * V, (), (), (),
+                      ("groupby", ("col", "i32", 0), tuple(("col", "f32", 1 + j) for j in range(V))),
+                      ("dict", acc_ds, cap, V, ops))
+
+
+# name: (accumulator family, capacity, lane ops, key layout)
+TERMINALS = {
+    "one_group": ("ht_linear", 256, ("sum", "min", "max"), 1),
+    "two_groups": ("ht_linear", 256, ("sum", "sum", "min"), 2),
+    "three_groups": ("ht_linear", 256, ("max", "sum"), 3),
+    "four_groups": ("ht_linear", 256, ("sum",) * 5, 4),
+    "twochoice_private": ("ht_twochoice", 2048, ("sum", "max"), 700),
+    "twochoice_global": ("ht_twochoice", 2**17, ("sum", "min"), 30_000),
+    "private_limit": ("ht_linear", 8192, ("sum",), 3000),  # 8,192 lanes: the last private size
+    "past_private_limit": ("ht_linear", 4096, ("sum", "min", "max"), 1500),  # 12,288 lanes: device memory
+    "sorted_runs": ("ht_linear", 2**20, ("sum", "max"), "runs"),  # lineitem's 1 to 7 rows a key, in order
+}
+
+
+@pytest.mark.parametrize("name", sorted(TERMINALS))
+def test_fused_dict_terminal_matches_plain(cuda, name):
+    """The warp-aggregated claim terminal, private (capacity x lanes <=
+    8,192) or in device memory, against its twin: equal key sets, sums
+    within the tolerance, min and max lanes exact; then the same rows folded
+    as two ``init=`` steps equal one launch."""
+    acc_ds, cap, ops, groups = TERMINALS[name]
+    rng = np.random.default_rng(len(name))
+    n = 200_003
+    if groups == "runs":
+        keys = np.repeat(np.arange(1, n, dtype=np.int32) * 4, rng.integers(1, 8, n - 1))[:n]
+    else:
+        keys = rng.integers(0, groups, n).astype(np.int32) * 7919 + 3
+    cols = [torch.from_numpy(keys).to(cuda)] + [torch.randn(n, device=cuda) for _ in ops]
+    live = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
+    prog = _terminal_program(acc_ds, cap, ops)
+    assert (cap * len(ops) <= fp.PRIV_FLOATS) == (name in ("one_group", "two_groups", "three_groups", "four_groups",
+                                                            "twochoice_private", "private_limit"))
+    got = fp.fused_pipeline(prog, cols, live, [], [])
+    want = fp.fused_pipeline_plain(prog, cols, live, [], [])
+    torch.cuda.synchronize()
+    g, w = _dict_items(*got), _dict_items(*want)
+    _same_items(g, w)
+    for j, op in enumerate(ops):
+        if op != "sum":
+            assert all(g[k][j] == w[k][j] for k in w), op
+    half = live & (torch.arange(n, device=cuda) < n // 2)
+    first = fp.fused_pipeline(prog, cols, half, [], [])
+    both = fp.fused_pipeline(prog, cols, live & ~half, [], [], init=first)
+    torch.cuda.synchronize()
+    assert both[0].data_ptr() == first[0].data_ptr()
+    _same_items(_dict_items(*both), w)
+
+
+@pytest.mark.parametrize("ds", ["ht_linear", "st_sorted"])
+def test_fused_radix_part_term_sorted_runs(cuda, ds):
+    """A radix region whose terminal is keyed by the partition key (the
+    ``[P, C]`` accumulator in device memory), its probe keys in sorted runs
+    of 1 to 7 rows: each warp folds a run into one claim."""
+    rng = np.random.default_rng(11)
+    nr = 60_000
+    a = np.repeat(np.arange(nr + 5000, dtype=np.int32), rng.integers(1, 8, nr + 5000))[:200_000]
+    db = {
+        "R": from_numpy({"a": np.arange(nr, dtype=np.int32), "m": rng.normal(size=nr).astype(np.float32)}, device=cuda),
+        "S": from_numpy({"a": a, "b": rng.integers(0, 50, len(a)).astype(np.int32),
+                         "w": rng.normal(size=len(a)).astype(np.float32)}, device=cuda),
+    }
+    sigma = collect_stats(db)
+    fused = P.fuse(_mode_plan("part_term", ds), sigma=sigma)
+    marked = P.Plan(tuple(
+        dataclasses.replace(n, partitions=32, part_sym="G") if isinstance(n, P.Pipeline) and n.source == "S" else n
+        for n in fused.nodes), fused.result)
+    flat = E.execute_plan(fused, db, sigma=sigma)
+    with recording(fp, "fused_pipeline") as calls:
+        got = E.execute_plan(marked, db, sigma=sigma)
+    assert E.last_report().mode(fused.result) == "kernel-radix"
+    (args, kwargs, _), = calls
+    assert args[0].part_terminal
+    _fused_calls_match_plain(calls)
+    _same_items(got.items_np(), flat.items_np())
