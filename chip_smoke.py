@@ -100,7 +100,10 @@ Phases (any failure exits non-zero):
    timed.  The decode kernel runs once more on
    synthetic chunks of every encoding and bit width (bit for bit), is timed
    per launch (device time: launches queued behind a sleep) and per pass
-   beside its bound, the H2D rate and the overlap of uploads with compute
+   beside its bound and, where one PyTorch call decodes the same chunk (an
+   8- or 16-bit bitpack chunk with no padded tail: a view as uint8 /
+   uint16 and a cast), beside that call (the synthetic 8- and 16-bit
+   chunks also unpadded, for it), the H2D rate and the overlap of uploads with compute
    come from the copy stream and a profiled pass, and warm walls and peak
    device memory are printed streamed against resident; the dictionary
    kernels' launches are counted and held against their twins as they
@@ -125,6 +128,10 @@ Phases (any failure exits non-zero):
    sampled search's smallest), and a 16,384-key table under SF 1's probes
    (the whole table staged in shared memory), each time held against its
    twin and its search model (``stride=1``) first; its kernels'
+   ``-Xptxas -v`` reports; the hash probe at SF 1 also on the device
+   clock, and at the sweep's largest lookup cells (2^21 keys, 8,388,608
+   hit and miss probes, shuffled and ordered) on the device clock beside
+   their bounds, each held against its twin first, and its kernels'
    ``-Xptxas -v`` reports; the hash build at SF 1 also on the device
    clock with the path ``build_path`` picks, and at the sweep's largest
    duplicate-heavy cells (2^18 shuffled rows into 32 and into 65,536 keys)
@@ -685,6 +692,62 @@ def sweep_lookups(torch, sl, real_sl, dev, sizes, seed):
     return rows
 
 
+def probe_sweep_cells(torch, dbase, ht_linear, real_hp, dev, seed):
+    """The hash probe at the installation sweep's largest lookup cells (the
+    profiler's draws: 2^21 distinct keys of 1 .. 8·2^21 built by
+    ``ht_linear.build`` into 2^22 slots, 4·2^21 present or absent probes,
+    shuffled and ordered): each launch held against its twin bit for bit,
+    then timed on the device clock beside its bound (queries, value rows and
+    flags once, each probe's key and each hit's row at most once a slot)."""
+    from repro_torch.kernels import hash_probe as hp
+
+    size = 2**21
+    rng = np.random.default_rng(seed)
+    universe = rng.choice(np.arange(1, 8 * size, dtype=np.int32), 2 * size, replace=False)
+    present, absent = universe[:size], universe[size:]
+    cap = dbase.next_pow2(2 * size)
+    t = ht_linear.build(torch.from_numpy(present).to(dev), torch.from_numpy(
+        rng.normal(size=(size, 1)).astype(np.float32)).to(dev), cap)
+    rows = []
+    for kind, src in (("hit", present), ("miss", absent)):
+        q = rng.choice(src, 4 * size, replace=True)
+        for order in ("shuffled", "ordered"):
+            qs = torch.from_numpy(np.sort(q) if order == "ordered" else q).to(dev)
+            got = real_hp(t.keys, t.vals, qs)
+            want = hp.hash_probe_plain(t.keys, t.vals, qs)
+            torch.cuda.synchronize()
+            check(torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]),
+                  f"hash_probe at the sweep's {kind} {order} cell differs from its plain twin")
+            n, hits = qs.shape[0], int(got[1].sum())
+            nbytes = 4 * n + 5 * n + 4 * min(cap, n) + 4 * min(cap, hits)
+            r = {"keys": size, "C": cap, "n": n, "kind": kind, "order": order, "hits": hits,
+                 "path": hp.probe_path(cap, 1, torch.cuda.get_device_properties(dev).L2_cache_size),
+                 "ms": device_ms(torch, lambda: real_hp(t.keys, t.vals, qs), 20), "bytes": nbytes,
+                 "bound_ms": bound_ms(nbytes, n)}
+            rows.append(r)
+            print(f"hash_probe, the sweep's cell of {n} {order} {kind} probes into {size} keys (C={cap}, "
+                  f"path {r['path']}): "
+                  f"{r['ms']:.4f} ms on the device clock, {r['ms'] / r['bound_ms']:.1f}x its bound "
+                  f"{r['bound_ms']:.4f} ms (bytes)")
+            del got, want, qs
+    return rows
+
+
+def decode_library(torch, code, payload, rows):
+    """``(fn, None)``: the one PyTorch call that decodes a chunk, where there
+    is one (an 8- or 16-bit bitpack chunk with no padded tail: the words
+    viewed as uint8 / uint16, cast to int32); else ``(None, reason)``."""
+    if code.kind != "bitpack":
+        return None, f"no single PyTorch call decodes a {code.kind} chunk"
+    if code.bits not in (8, 16):
+        return None, f"{code.bits}-bit fields are no PyTorch dtype"
+    if rows != code.n:
+        return None, "a padded tail is no view"
+    small = torch.uint8 if code.bits == 8 else torch.uint16
+    words = payload["words"]
+    return (lambda: words.view(small)[:rows].to(torch.int32)), None
+
+
 def snowflake(n_fact, n_dim, seed):
     """The example's generator: S(s sorted, i, u), R(s, c) with
     u = 0.8·i − 0.5·c[s] + 0.1·noise."""
@@ -1158,11 +1221,16 @@ def install_phase(torch, dev, refs, walls, root):
     card = props.multi_processor_count, props.L2_cache_size
     rows["hash_build"].update(path=hb.build_path(n_o, cap, V, *card),
                               device_ms=device_ms(torch, lambda: real_hb(okeys, ones, cap, P, None), 20))
+    rows["hash_probe"].update(path=hp.probe_path(cap, V, card[1]),
+                              device_ms=device_ms(torch, lambda: real_hp(tk, tv, probes, P), 20))
     for name, r in rows.items():
         r["bound_ms"] = bound_ms(r["bytes"], r["ops"])
         print(f"{name} C={cap} V={V} n={r['n']}: kernel {r['ms']:.3f} ms ({r['ms'] / r['bound_ms']:.1f}x its bound "
               f"{r['bound_ms']:.4f} ms, bytes), plain {r['plain_ms']:.3f} ms"
-              + (f"; path {r['path']}, {r['device_ms']:.4f} ms on the device clock" if "path" in r else ""))
+              + (f"; path {r['path']}" if "path" in r else "")
+              + (f"; {r['device_ms']:.4f} ms on the device clock" if "device_ms" in r else ""))
+    out["hash_probe_sweep"] = probe_sweep_cells(torch, dbase, ht_linear, real_hp, dev, SEED)
+    out["hash_probe_ptxas"] = kernel_ptxas(build, "hash_probe", ("hash_probe_kernel",))
     # the sweep's largest duplicate-heavy insert cells (the profiler's draws):
     # 2^18 rows into 32 keys (8,192 a key) and into 65,536 keys (4 a key)
     rng = np.random.default_rng(SEED)
@@ -1816,21 +1884,25 @@ def main() -> int:
         ms = device_ms(torch, lambda: real_dk(code, payload, rows), 50)
         launch_ms = timed(torch, lambda: real_dk(code, payload, rows), 50)
         plain_ms = timed(torch, lambda: DK.decode_plain(code, payload, rows), 10)
+        lib, why = decode_library(torch, code, payload, rows)
+        lib_ms = device_ms(torch, lib, 50) if lib is not None else None
         dec_rows.append({"kind": enc_kind, "bits": bits, "dtype": dtype, "rows": rows, "launches": g["count"],
-                         "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms, "bytes": nbytes,
-                         "bound_ms": bound_ms(nbytes, 0), "pass_ms": ms * g["count"],
+                         "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "bytes": nbytes, "bound_ms": bound_ms(nbytes, 0), "pass_ms": ms * g["count"],
                          "pass_plain_ms": plain_ms * g["count"], "pass_bytes": g["bytes"]})
         print(f"decode {enc_kind} bits={bits} {dtype} ({g['count']} launches a warm pass): {ms * 1e3:.2f} us a chunk "
               f"on the device ({launch_ms * 1e3:.2f} us a call back to back), bound {bound_ms(nbytes, 0) * 1e3:.2f} us, "
-              f"plain {plain_ms * 1e3:.2f} us")
+              f"plain {plain_ms * 1e3:.2f} us, library "
+              + (f"{lib_ms * 1e3:.2f} us" if lib is not None else f"none ({why})"))
     dec_pass_ms = sum(r["pass_ms"] for r in dec_rows)
     dec_pass_bound = bound_ms(sum(r["pass_bytes"] for r in dec_rows), 0)
     print(f"decode per warm pass of the five queries: {dec_pass_ms:.2f} ms over {len(dec_rows)} "
           f"signatures, bound {dec_pass_bound:.3f} ms, plain {sum(r['pass_plain_ms'] for r in dec_rows):.2f} ms")
+    dec_ptx = kernel_ptxas(build, "decode", ("packed_kernel", "rle_kernel"))
 
     # every encoding and bit width once more, at the chunk's shape, bit for bit
     rng = np.random.default_rng(SEED)
-    synth = 0
+    synth, dec_lib_rows = 0, []
     for enc_kind, a in synthetic_columns(rng, OOC_CHUNK_ROWS - 17):
         enc = STG.encode_column(a, mode=enc_kind)
         payload = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in enc.payload.items()}
@@ -1840,6 +1912,18 @@ def main() -> int:
         check(torch.equal(got.view(torch.int32), want.view(torch.int32))
               and np.array_equal(got[: len(a)].cpu().numpy(), a), f"synthetic {enc_kind} column: decode differs")
         synth += 1
+        lib, _ = decode_library(torch, code, payload, code.n)
+        if lib is not None:  # the same chunk unpadded, beside the one PyTorch call that decodes it
+            got = real_dk(code, payload, code.n)
+            check(torch.equal(got, lib()) and torch.equal(got, want[: code.n]),
+                  f"synthetic {enc_kind} {code.bits}-bit column: the library call or the unpadded decode differs")
+            r = {"kind": enc_kind, "bits": code.bits, "rows": code.n, "ms": device_ms(torch, lambda: real_dk(
+                code, payload, code.n), 50), "library_ms": device_ms(torch, lib, 50),
+                "bound_ms": bound_ms(4 * payload["words"].numel() + 4 * code.n, 0)}
+            dec_lib_rows.append(r)
+            print(f"decode {enc_kind} bits={code.bits} int32, {code.n} rows unpadded: {r['ms'] * 1e3:.2f} us on the "
+                  f"device, library (a view as uint{code.bits} and a cast) {r['library_ms'] * 1e3:.2f} us, "
+                  f"bound {r['bound_ms'] * 1e3:.2f} us")
     print(f"decode kernel bit for bit against its twin on {synth} synthetic chunks (bitpack 1/2/4/8/16, FOR, "
           f"dict int32/float32, RLE int32/float32)")
 
@@ -1942,7 +2026,8 @@ def main() -> int:
                       "tpch_batch_warm_ms": batch_warm * 1e3,
                       "indb_ml_warm_ms": {k: v * 1e3 for k, v in warm.items()},
                       "indb_ml_peak_bytes": peak, "launches_by_path": launches,
-                      "covariance_batch_fused": cov_fused, "ooc_decode": dec_rows,
+                      "covariance_batch_fused": cov_fused, "ooc_decode": dec_rows, "decode_library": dec_lib_rows,
+                      "decode_ptxas": dec_ptx,
                       "ooc_warm_ms": {q: ooc_warm[q] * 1e3 for q in QUERIES},
                       "ooc_resident_warm_ms": {q: res_warm[q] * 1e3 for q in QUERIES},
                       "ooc_peak_bytes": ooc_peak, "ooc_before_bytes": ooc_before,

@@ -5,10 +5,11 @@ Replaces ``repro/kernels/decode.py:pallas_decode`` (and its jitted twin
 ``decode_device``).  The host keeps out-of-core relations as per-chunk
 encoded columns (``repro_torch.data.storage``); only the encoded payload
 crosses the host→device link, and this kernel rebuilds the column on the
-card, one thread per output row: shift and mask for bit-packed and
-frame-of-reference words, a gather for dictionary codes, an upper bound over
-the tile's run ends for RLE.  Every step is exact, so the result is bitwise
-equal to the host's ``EncodedColumn.decode()``.
+card, four rows a thread with one 16-byte store: shift and mask for
+bit-packed and frame-of-reference words (one word a step, 32-bit shifts),
+a gather for dictionary codes, and for RLE an upper bound over the tile's
+run ends staged in shared memory.  Every step is exact, so the result is
+bitwise equal to the host's ``EncodedColumn.decode()``.
 
 :func:`decode_plain` is the same function in PyTorch (shifts and masks, a
 gather, ``searchsorted`` for RLE); :func:`decode` launches the kernel on CUDA
@@ -116,6 +117,11 @@ def stream_payload(es: EncodedStream) -> Dict[str, torch.Tensor]:
     return {k: getattr(es, k) for k in ("words", "values", "ends") if getattr(es, k) is not None}
 
 
+#: rows a launch writes: the kernel's indices are 32-bit
+MAX_ROWS = 2**31
+#: runs a tile the RLE kernel stages (ends and values, 8 bytes a run, in 48 KB)
+MAX_RUNS = 6144
+
 _LIB = {}
 
 
@@ -131,17 +137,19 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"decode: {msg}")
 
 
-def decode(code: ColumnCode, payload: Dict[str, torch.Tensor], out_rows: int) -> torch.Tensor:
-    """``[out_rows]`` decoded rows of one encoded column chunk.  CPU payloads
-    take :func:`decode_plain`; CUDA payloads launch the kernel or raise."""
+def launch_args(code: ColumnCode, payload: Dict[str, torch.Tensor], out_rows: int):
+    """``(a, b, ints)``: the kernel's two input tensors and integer
+    arguments for one chunk, once the checks that it takes them pass (any
+    device; the wrapper calls it for CUDA payloads)."""
     tensors = list(payload.values())
-    if not tensors[0].is_cuda:
-        return decode_plain(code, payload, out_rows)
     dev = tensors[0].device
     _check(code.kind in KINDS, f"no kernel for encoding {code.kind!r}")
     _check(code.dtype in DTYPES, f"decoded dtype must be int32 or float32, got {code.dtype}")
-    _check(all(t.device == dev and t.is_contiguous() for t in tensors), "payload must be contiguous on one CUDA device")
+    _check(all(t.device == dev and t.is_contiguous() for t in tensors), "payload must be contiguous on one device")
     _check(code.n >= 1 and out_rows >= code.n, f"need 1 <= n <= out_rows, got n={code.n}, out_rows={out_rows}")
+    _check(out_rows < MAX_ROWS, f"the kernel indexes rows in 32 bits, got out_rows={out_rows} >= 2^31")
+    _check(code.block >= 32 and code.block & (code.block - 1) == 0,
+           f"tiles must be a power of two of at least 32 rows, got block={code.block}")
     nt = -(-code.n // code.block)
     runs = 0
     if code.kind == "rle":
@@ -150,6 +158,7 @@ def decode(code: ColumnCode, payload: Dict[str, torch.Tensor], out_rows: int) ->
         _check(a.dtype == DTYPES[code.dtype] and b.dtype == torch.int32
                and a.shape == b.shape == (nt, runs) and runs >= 1,
                f"RLE tables must be [{nt}, R>=1]: values {code.dtype}, ends int32")
+        _check(runs <= MAX_RUNS, f"a tile's {runs} runs do not fit the kernel's stage ({MAX_RUNS})")
     else:
         _check(code.bits in (1, 2, 4, 8, 16), f"bit width must be 1/2/4/8/16, got {code.bits}")
         a = payload["words"]
@@ -162,13 +171,20 @@ def decode(code: ColumnCode, payload: Dict[str, torch.Tensor], out_rows: int) ->
         else:
             _check(code.dtype == "int32", "bitpack and FOR decode to int32")
             b = a
-    out = torch.empty((out_rows,), dtype=DTYPES[code.dtype], device=dev)
-    build.launch(
-        _launcher(),
-        [a.data_ptr(), b.data_ptr(), out.data_ptr()],
-        [KINDS[code.kind], code.n, out_rows, code.bits, code.ref, code.block, runs],
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    ints = [KINDS[code.kind], code.n, out_rows, code.bits, code.ref, code.block.bit_length() - 1, runs]
+    return a, b, ints
+
+
+def decode(code: ColumnCode, payload: Dict[str, torch.Tensor], out_rows: int) -> torch.Tensor:
+    """``[out_rows]`` decoded rows of one encoded column chunk.  CPU payloads
+    take :func:`decode_plain`; CUDA payloads launch the kernel or raise."""
+    first = next(iter(payload.values()))
+    if not first.is_cuda:
+        return decode_plain(code, payload, out_rows)
+    a, b, ints = launch_args(code, payload, out_rows)
+    out = torch.empty((out_rows,), dtype=DTYPES[code.dtype], device=first.device)
+    build.launch(_launcher(), [a.data_ptr(), b.data_ptr(), out.data_ptr()], ints,
+                 torch.cuda.current_stream(first.device).cuda_stream)
     _DECODE.launches += 1
     return out
 

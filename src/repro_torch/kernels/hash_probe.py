@@ -2,11 +2,15 @@
 hand-written Hopper kernel (``csrc/hash_probe.cu``).
 
 Replaces ``repro/kernels/hash_probe.py:hash_probe``.  One thread a query
-walks its linear-probe chain until it finds the key or an EMPTY slot, at most
-``max_probes`` slots, and gathers the value row (zeros for a miss).  The
-plain twin, :func:`hash_probe_plain`, is the reference's ``ref.hash_probe``:
-``dicts.base.generic_lookup`` with ``ht_linear``'s probe sequence and the
-same bound; the wrapper takes it only for CPU tensors.
+reads its home slot's key, walks the rest of its linear-probe chain (four
+aligned slots a load) only where the home key is another one, at most
+``max_probes`` slots, then gathers the value row of the slot that holds
+the key (zeros for a miss); queries and outputs stream past L2 while the
+table is read under an evict-last policy where it is a large share of L2
+(:func:`probe_path`), and a warp writes V > 1 value rows together.
+The plain twin, :func:`hash_probe_plain`, is the reference's
+``ref.hash_probe``: ``dicts.base.generic_lookup`` with ``ht_linear``'s probe
+sequence and the same bound; the wrapper takes it only for CPU tensors.
 """
 from __future__ import annotations
 
@@ -40,6 +44,27 @@ def check_table(what, keys, vals, queries):
                          f"{tuple(keys.shape)}, {tuple(vals.shape)}, {tuple(queries.shape)}")
 
 
+#: queries a launch takes: the kernel's indices are 32-bit
+MAX_QUERIES = 2**31
+
+def probe_path(C: int, V: int, l2_bytes: int) -> str:
+    """``"hinted"`` where the table (keys and value rows) is larger than a
+    quarter of L2: queries and outputs stream evict-first past a table read
+    evict-last, which keeps more of it in L2 (8 % at SF 1's 33.5 MB table);
+    ``"plain"`` for smaller tables, where the hints cost up to 6 % (the
+    sweep's 8 MB tables; ``PERF.md`` §6)."""
+    return "hinted" if C * (4 + 4 * V) > l2_bytes // 4 else "plain"
+
+
+def check_launch(C: int, n: int) -> None:
+    """The kernel's own limits: ``C`` a power of two (the chain wraps by a
+    mask) and fewer than 2^31 queries (its indices are 32-bit)."""
+    if C & (C - 1):
+        raise ValueError(f"hash_probe: capacity must be a power of two, got {C}")
+    if n >= MAX_QUERIES:
+        raise ValueError(f"hash_probe: the kernel indexes queries in 32 bits, got {n} >= 2^31")
+
+
 _LIB = {}
 
 
@@ -58,10 +83,9 @@ def hash_probe(table_keys, table_vals, queries, max_probes: int = MAX_PROBES) ->
         return hash_probe_plain(table_keys, table_vals, queries, max_probes)
     check_table("hash_probe", table_keys, table_vals, queries)
     C, V = table_vals.shape
-    if C & (C - 1):
-        raise ValueError(f"hash_probe: capacity must be a power of two, got {C}")
-    table_keys, table_vals, queries = table_keys.contiguous(), table_vals.contiguous(), queries.contiguous()
     n = queries.shape[0]
+    check_launch(C, n)
+    table_keys, table_vals, queries = table_keys.contiguous(), table_vals.contiguous(), queries.contiguous()
     out_vals = torch.empty((n, V), dtype=torch.float32, device=queries.device)
     out_found = torch.empty((n,), dtype=torch.bool, device=queries.device)
     if n == 0:
@@ -70,7 +94,8 @@ def hash_probe(table_keys, table_vals, queries, max_probes: int = MAX_PROBES) ->
         _launcher(),
         [table_keys.data_ptr(), table_vals.data_ptr(), queries.data_ptr(),
          out_vals.data_ptr(), out_found.data_ptr()],
-        [n, C, V, max_probes],
+        [n, C, V, max_probes,
+         int(probe_path(C, V, torch.cuda.get_device_properties(queries.device).L2_cache_size) == "hinted")],
         torch.cuda.current_stream(queries.device).cuda_stream,
     )
     _PROBE.launches += 1

@@ -1146,3 +1146,106 @@ def test_fused_radix_part_term_sorted_runs(cuda, ds):
     assert args[0].part_terminal
     _fused_calls_match_plain(calls)
     _same_items(got.items_np(), flat.items_np())
+
+
+# (capacity, V, max_probes, kind) of the hash-probe cases of
+# tests/test_torch_probe_decode_redesign.py, on the card
+PROBE_CASES = {
+    "home_hits_v1": (4096, 1, 128, "home"),
+    "home_hits_v3": (4096, 3, 128, "home"),
+    "displaced_v1": (2048, 1, 128, "displaced"),
+    "displaced_v3": (2048, 3, 128, "displaced"),
+    "wrap_v1": (1024, 1, 128, "wrap"),
+    "wrap_v3": (1024, 3, 128, "wrap"),
+    "cut_at_max_probes": (2048, 1, 8, "cut"),
+    "cut_at_max_probes_v3": (2048, 3, 8, "cut"),
+    "misses_at_empty": (4096, 1, 128, "miss"),
+    "mixed_v2": (8192, 2, 128, "mixed"),
+    "mixed_v5": (8192, 5, 128, "mixed"),
+    "mixed_v8": (8192, 8, 128, "mixed"),
+    "mixed_v9": (8192, 9, 128, "mixed"),  # wider than the speculative rows: gathered after the keys
+    "tiny_c2": (2, 1, 128, "mixed"),  # C < 4: one slot a load
+}
+
+
+def _probe_card_case(case, rng, dev):
+    """(table keys [C], table vals [C, V], queries [100,003], max_probes):
+    the plain twin's build of the case's keys, queries shuffled."""
+    cap, V, mp, kind = PROBE_CASES[case]
+    cand = rng.choice(10**7, size=400_000, replace=False).astype(np.int32)
+    home = _home(cand, cap)
+    if kind == "home":  # distinct homes
+        _, first = np.unique(home, return_index=True)
+        keys = cand[np.sort(first)][:1200]
+    elif kind == "displaced":  # chains of 10 on 6 homes, two of them adjacent
+        keys = np.concatenate([cand[home == s][:10] for s in (3, 400, 401, 900, 1500, 2040)])
+    elif kind == "wrap":  # homes at C - 4 .. C - 1
+        keys = cand[home >= cap - 4][:30]
+    elif kind == "cut":  # 20 keys on one home, probed 8 slots deep
+        keys = cand[home == cap // 2][:20]
+    else:
+        keys = cand[: max(cap // 3, 1)]
+    vals = rng.normal(size=(len(keys), V)).astype(np.float32)
+    tk, tv = hb.hash_build_plain(torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev), cap,
+                                 ht_linear.MAX_PROBES)
+    if kind == "miss":
+        qs = rng.integers(10**7, 2 * 10**7, 100_003)
+    else:
+        qs = rng.choice(keys, 100_003)
+        if kind == "mixed":
+            qs[::3] = rng.integers(10**7, 2 * 10**7, len(qs[::3]))
+    return tk, tv, torch.from_numpy(qs.astype(np.int32)).to(dev), mp
+
+
+@pytest.mark.parametrize("path", ["plain", "hinted"])
+@pytest.mark.parametrize("layout", ["aligned", "offset"])
+@pytest.mark.parametrize("order", ["shuffled", "sorted"])
+@pytest.mark.parametrize("case", sorted(PROBE_CASES))
+def test_hash_probe_kernel_cases(cuda, monkeypatch, case, order, layout, path):
+    """Every probe case, bit for bit against the twin, the table aligned and
+    at a 4-byte offset, on each path ``probe_path`` can pick (forced)."""
+    monkeypatch.setattr(hp, "probe_path", lambda C, V, l2_bytes: path)
+    tk, tv, qs, mp = _probe_card_case(case, np.random.default_rng(len(case)), cuda)
+    if order == "sorted":
+        qs = torch.sort(qs).values
+    if layout == "offset":
+        bk = torch.empty((tk.shape[0] + 1,), dtype=torch.int32, device=cuda)
+        bv = torch.empty((tk.shape[0] + 1, tv.shape[1]), device=cuda)
+        bk[1:], bv[1:] = tk, tv
+        tk, tv = bk[1:], bv[1:]
+        assert tk.data_ptr() % 16 and tk.is_contiguous() and tv.is_contiguous()
+    before = hp.hash_probe.launches
+    for n in (qs.shape[0], 1, 31, 257):  # n no multiple of a warp or a block
+        gv, gf = hp.hash_probe(tk, tv, qs[:n], mp)
+        wv, wf = hp.hash_probe_plain(tk, tv, qs[:n], mp)
+        torch.cuda.synchronize()
+        assert torch.equal(gf, wf), (case, n)
+        assert torch.equal(gv.view(torch.int32), wv.view(torch.int32)), (case, n)
+    assert hp.hash_probe.launches == before + 4
+    found = hp.hash_probe_plain(tk, tv, qs, mp)[1]
+    kind = PROBE_CASES[case][3]
+    if kind in ("home", "displaced", "wrap"):
+        assert bool(found.all())
+    if kind == "cut":
+        assert 0 < int(found.sum()) < found.shape[0]
+    if kind == "miss":
+        assert not bool(found.any())
+    assert hp.hash_probe(tk, tv, qs, 0)[1].sum() == 0  # no probe: every query misses
+
+
+@pytest.mark.parametrize("n", [1_048_576 - 17, 231_168, 5])
+def test_decode_kernel_at_the_chunk_shape(cuda, n):
+    """Every kind and width at a 1,048,576-row chunk: 17 rows short of it,
+    SF 10's short final chunk (231,168 rows) and a 5-row one, each padded to
+    the chunk and unpadded, bit for bit against the twin."""
+    rng = np.random.default_rng(n)
+    for name, a, kind in _decode_columns(rng, n):
+        enc = S.encode_column(a, block=1024, mode=kind)
+        payload = {k: torch.from_numpy(np.array(v)).to(cuda) for k, v in enc.payload.items()}
+        code = dk.column_code(enc)
+        for rows in (n, 1_048_576):
+            got = dk.decode(code, payload, rows)
+            want = dk.decode_plain(code, payload, rows)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (name, rows)
+            np.testing.assert_array_equal(got[:n].cpu().numpy(), a)
