@@ -138,11 +138,35 @@ Phases (any failure exits non-zero):
    beside their bounds, each held against its twin first, and its kernels'
    ``-Xptxas -v`` reports (the global claim, the private tables, the
    partitioned build's count, scan, scatter, slice and overflow launches);
-12. print the ``-Xptxas -v`` report of one generated fused region of each
+12. serving at TPC-H SF 1 (phase 11's data, resident): the degradation
+   ladder driven rung by rung by injected faults, as the reference's ladder
+   tests drive it (q1 at the fused rung; q1 under ``fused-region``/OOM at
+   the materialized rung; q18 and q1 under ``kernel-launch``/OOM at the
+   streamed rung, lineitem chunked in ``OOC_CHUNK_ROWS``-row chunks), each
+   with its kernels counted from zero and every launch held against its
+   twin, its warm wall, and its result against the clean primary by the
+   card's rule (``session.degraded_equal``: keys and integer lanes exact,
+   floats at rtol=3e-3, atol=3e-2) and against numpy; two transient faults
+   tripping the breaker and an injected clock past the cooldown restoring
+   the primary; one real ``torch.cuda.OutOfMemoryError``: each rung's peak
+   device memory measured warm, then a ``set_per_process_memory_fraction``
+   cap bisected between the lighter lower rung's reserved peak and the
+   fused pass's until the fused pass runs out of memory and a lower rung
+   serves the right result (the fraction restored after each try); 64
+   requests over the five queries with distinct bindings through
+   ``QueryServer`` (``max_batch=8``), without and with ``share_scans``,
+   every response equal to ``session.query`` for its binding, ``stats()``
+   printed, launches counted from zero; a chaos pass (``kernel-launch`` at
+   rate 0.1, seed 5, 24 requests) in which every request terminates;
+13. print the ``-Xptxas -v`` report of one generated fused region of each
    dictionary-terminal path (a block-private table, device memory, radix)
    and the kernels' JSON line (the fused pipeline's entry with its modes:
    launches on the main paths and the largest error per mode, and the
    timed launches' sums), then ``{"ok": true, "device": ...}`` last.
+
+Every phase that runs ``Session.query`` (3–6, 10 and 11) requires the
+session to have served each query at its primary rung, with no fault: the
+ladder must not turn a broken kernel into a slower answer.
 
 Phases 7 and 8 price merges against the card's device memory: the kernels
 read dictionaries from device memory, and the planner's default budget is
@@ -228,9 +252,15 @@ def same_items(got, want, what):
     """Equal key sets and values within the tolerance, compared as one array."""
     check(got.keys() == want.keys(), f"{what}: key sets differ ({len(got)} vs {len(want)})")
     ks = list(want)
-    g = np.array([np.ravel(got[k]) for k in ks], dtype=np.float64)
-    w = np.array([np.ravel(want[k]) for k in ks], dtype=np.float64)
+    g = np.asarray([got[k] for k in ks], dtype=np.float64).reshape(len(ks), -1)
+    w = np.asarray([want[k] for k in ks], dtype=np.float64).reshape(len(ks), -1)
     np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL, err_msg=what)
+
+
+def host_rss():
+    """This process's resident host memory in bytes (``VmRSS``)."""
+    with open("/proc/self/status") as f:
+        return next(int(line.split()[1]) * 1024 for line in f if line.startswith("VmRSS:"))
 
 
 def timed(torch, fn, reps):
@@ -254,6 +284,14 @@ def wall(torch, fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t
+
+
+def undegraded(session, what):
+    """The session served every query at its primary rung: no fault, no
+    descent — the ladder hid no kernel failure."""
+    check(session.report().degraded == 0 and not any(session.fault_stats.values()),
+          f"{what}: the degradation ladder served a query below its primary rung "
+          f"({session.report().degradation!r}, fault_stats {session.fault_stats})")
 
 
 START = time.perf_counter()
@@ -1192,6 +1230,7 @@ def install_phase(torch, dev, refs, walls, root):
     # where a warm pass under the learned Δ spends device time, and how long the device idles
     out["profile"] = profile_pass(torch, lambda: [session.query(q) for q in QUERIES], 12)
     print(json.dumps({"profile_learned": out["profile"]}))
+    undegraded(session, "learned Δ")
     del session
 
     stamp("11. dictionary kernels at TPC-H SF 1 shapes")
@@ -1272,7 +1311,245 @@ def install_phase(torch, dev, refs, walls, root):
     out["hb_err"] = hb_err
     out["seconds"] = time.perf_counter() - t_phase
     print(f"installation phase: {out['seconds']:.1f}s")
-    del db, tk, tv, st, okeys, probes, shuffled, ones
+    del tk, tv, st, okeys, probes, shuffled, ones
+    out["db"] = db  # TPC-H SF 1 again, for the serving phase
+    return out
+
+
+# the serving phase: the queries and bindings QueryServer serves (64 requests,
+# round robin over the five queries), and the rung each fault scenario reaches
+SERVE_BINDINGS = {
+    "q1": [{"date": round(0.5 + 0.03 * i, 3)} for i in range(13)],
+    "q3": [{"date": round(0.02 + 0.01 * i, 3)} for i in range(13)],
+    "q5": [{"region": i % 5} for i in range(13)],
+    "q9": [{} for _ in range(13)],
+    "q18": [{"threshold": 100.0 + 15.0 * i} for i in range(12)],
+}
+# (rung, query, fault point, error, rungs descended): the reference's ladder
+# scenarios (tests/test_faults.py), each rung reached by an injected fault
+LADDER_RUNS = (
+    ("fused", "q1", None, None, 0),
+    ("materialized", "q1", "fused-region", "oom", 1),
+    ("streamed", "q18", "kernel-launch", "oom", 2),
+    ("streamed", "q1", "kernel-launch", "oom", 2),
+)
+# the query whose fused pass holds the most above its lighter lower rungs at
+# SF 1 (q18's streamed rung peaks as high as its fused pass)
+OOM_QUERY = "q3"
+
+
+def serving_phase(torch, dev, db, refs, smi):
+    """The degradation ladder and the QueryServer at TPC-H SF 1, resident on
+    the card: each rung reached by an injected fault (its kernels counted
+    from zero and held against their twins, its warm wall, its result
+    against the clean primary by the card's rule and against numpy), two
+    transient faults tripping the breaker and an injected clock restoring
+    the primary; one real out-of-memory under a memory-fraction cap; 64
+    mixed requests through ``QueryServer`` with and without shared scans;
+    a chaos pass."""
+    import repro_torch
+    from repro_torch import errors as ERR
+    from repro_torch import session as SESS
+    from repro_torch.dicts import base as dbase
+    from repro_torch.kernels import decode as DK
+    from repro_torch.kernels import fused_pipeline as fp
+    from repro_torch.kernels import hash_build as hb
+    from repro_torch.kernels import hash_probe as hp
+    from repro_torch.kernels import merge_lookup as ml
+    from repro_torch.kernels import segment_reduce as sr
+    from repro_torch.kernels import sorted_lookup as sl
+    from repro_torch.serve.query_server import QueryServer
+    from repro_torch.testing import faults
+    from repro_torch.testing.oom import oom_job
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "mode_launches": {}, "fp_mode_err": {}, "fp_err": 0.0, "hb_err": 0.0, "rungs": []}
+    kernels = [(fp, "fused_pipeline"), (ml, "merge_lookup"), (sr, "segment_reduce"), (DK, "decode"),
+               (hp, "hash_probe"), (sl, "sorted_lookup"), (hb, "hash_build")]
+
+    def counts():
+        return {name: getattr(mod, name).launches for mod, name in kernels}
+
+    def targets(what):
+        def fused(args, kw, o):
+            return check_fused(torch, fp, dbase, [(args, kw, o)], what, out["fp_mode_err"])
+
+        def merge(args, _kw, o):
+            check_merge(torch, ml, [(args, {}, o)], what)
+            return 0.0
+
+        def segment(args, kw, o):
+            return check_segment(torch, sr, [(args, kw, o)], what)
+
+        def decode(args, _kw, o):
+            check(torch.equal(o.view(torch.int32), DK.decode_plain(*args).view(torch.int32)),
+                  f"{what}: a decode launch differs from its plain twin")
+            return 0.0
+
+        def dict_kernel(name):
+            return lambda args, kw, o: check_dict(torch, dbase, {name: [(args, kw, o)]}, what)
+
+        return ([(fp, "fused_pipeline", fused), (ml, "merge_lookup", merge), (sr, "segment_reduce", segment),
+                 (DK, "decode", decode)]
+                + [(mod, name, dict_kernel(name)) for mod, name in kernels[4:]])
+
+    def injected(point, error):
+        return faults.injected(point, mode="always", error=error) if point else contextlib.nullcontext()
+
+    stamp("12. serving: the ladder, rung by rung")
+    print(f"card: {smi}")
+    t = [0.0]
+    session = repro_torch.connect(db, device=dev, chunk_rows=OOC_CHUNK_ROWS, clock=lambda: t[0])
+
+    def reset():
+        session._breaker.clear()
+        session._breaker_fails.clear()
+
+    clean = {}
+    for q in QUERIES:
+        clean[q] = session.query(q)
+        same_items(clean[q], refs[q], f"{q} (serving session)")
+    for rung, q, point, error, down in LADDER_RUNS:
+        reset()
+        with injected(point, error):  # the rung's first run (a lower rung builds here)
+            _, cold_s = wall(torch, lambda: session.query(q))
+        reset()
+        with checking(targets(f"{q} at {rung}")) as errs, injected(point, error):
+            got = session.query(q)
+        rep = session.report()
+        launched = {name: n for name, n in counts().items() if n}
+        out["launches"][f"ladder_{rung}_{q}"] = counts()
+        out["mode_launches"][f"ladder_{rung}_{q}"] = dict(fp.fused_pipeline.mode_launches)
+        want = (rung if down else "", down, down)
+        check((rep.degradation, rep.degraded, rep.faults) == want,
+              f"{q} under {point}/{error}: served {rep.degradation!r} after {rep.degraded} rungs and {rep.faults} "
+              f"faults, not {want}")
+        check(launched, f"{q} at {rung}: no kernel launched")
+        if rung == "materialized":
+            check(not launched.get("fused_pipeline"), f"{q}'s materialized rung launched the fused pipeline")
+        check(SESS.degraded_equal(got, clean[q], dev), f"{q} at {rung} differs from the clean primary result")
+        same_items(got, refs[q], f"{q} at {rung} against numpy")
+        out["fp_err"] = max([out["fp_err"]] + errs["fused_pipeline"])
+        out["hb_err"] = max([out["hb_err"]] + errs["hash_build"])
+        # timed without the checks: after a descent the open breakers pin the rung
+        _, warm_s = wall(torch, lambda: session.query(q))
+        check(session.report().degradation == want[0], f"{q}: the breakers did not pin {rung}")
+        out["rungs"].append({"rung": rung, "query": q, "fault": f"{point}/{error}" if point else None,
+                             "first_s": cold_s, "warm_ms": warm_s * 1e3, "launches": launched,
+                             "modes": session.report().modes()})
+        print(f"{q} at {rung}" + (f" (under {point}/{error}, {down} rungs down)" if point else "")
+              + f": first run {cold_s:.2f}s, warm {warm_s * 1e3:.1f} ms; launches {launched}; "
+              f"regions {session.report().modes()}")
+
+    stamp("12. serving: two transient faults trip the breaker, a clock restores the primary")
+    reset()
+    session.breaker_threshold = 2
+    raised = 0
+    with faults.injected("kernel-launch", mode="always"):
+        for _ in range(2):
+            try:
+                session.query("q1")
+            except ERR.FaultInjected:
+                raised += 1
+        got = session.query("q1")
+    rep = session.report()
+    opened = sorted(m for _, m in session.breakers())
+    check(raised == 2 and (rep.degradation, rep.degraded) == ("streamed", 2) and opened == ["fused", "materialized"],
+          f"transient faults: {raised} raised, served {rep.degradation!r}, breakers {opened}")
+    check(SESS.degraded_equal(got, clean["q1"], dev), "q1 after the breaker differs from its primary result")
+    same_items(got, refs["q1"], "q1 after the breaker against numpy")
+    t[0] += session.breaker_cooldown_s + 1.0
+    check(session.breakers() == {}, "the breakers stayed open past their cooldown")
+    got = session.query("q1")
+    check(session.report().degraded == 0, "the primary rung did not come back after the cooldown")
+    same_items(got, refs["q1"], "q1 back at the primary against numpy")
+    out["transient"] = {"raised": raised, "served": rep.degradation, "breakers": opened,
+                        "fault_stats": dict(session.fault_stats)}
+    print(f"two transient kernel-launch faults raised, the third call served at {rep.degradation} with breakers "
+          f"{opened} open; past the cooldown the primary serves again; fault_stats {session.fault_stats}")
+
+    stamp("12. serving: a real out-of-memory (in a worker process)")
+    # a fresh process: its caching allocator holds only this section's
+    # memory, so reserved peaks measure the rungs and the cap binds them
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        oom = pool.submit(oom_job, SCALE, SEED, OOC_CHUNK_ROWS, OOM_QUERY).result()
+    for line in oom.pop("lines"):
+        print(line)
+    out["oom"] = oom
+
+    stamp("12. serving: 64 mixed requests through QueryServer")
+    reqs = []
+    for i in range(max(len(v) for v in SERVE_BINDINGS.values())):
+        reqs += [(q, SERVE_BINDINGS[q][i]) for q in QUERIES if i < len(SERVE_BINDINGS[q])]
+    check(len(reqs) == 64, f"{len(reqs)} requests")
+    reset()
+    expect = {}  # each binding's result through session.query
+    for q, params in reqs:
+        key = (q, tuple(sorted(params.items())))
+        if key not in expect:
+            expect[key] = session.query(q, **params)
+            check(session.report().degraded == 0, f"{q} {params} was served below its primary rung")
+    out["serving"] = {}
+    for shared in (False, True):
+        label = "serving_shared" if shared else "serving"
+        # a shared pass first builds the merged batches' programs
+        for measured in (False, True) if shared else (True,):
+            stamp(f"12. serving: QueryServer, share_scans={shared}, {'measured' if measured else 'first'} pass")
+            srv = QueryServer(session, max_batch=8, share_scans=shared)
+            srv.warm_up()
+            for q, params in reqs:
+                srv.submit(q, **params)
+            if measured:
+                for mod, name in kernels:
+                    zero_counts(getattr(mod, name))
+            t_run = time.perf_counter()
+            srv.run_until_done()
+            run_s = time.perf_counter() - t_run
+        out["launches"][label] = counts()
+        out["mode_launches"][label] = dict(fp.fused_pipeline.mode_launches)
+        st = srv.stats()
+        check(st["responses"] == 64 and st["queued"] == 0 and all(r.ok for r in srv.finished),
+              f"{label}: {st['responses']} responses, errors {[r.error_info for r in srv.finished if not r.ok][:3]}")
+        for r in srv.finished:
+            same_items(r.result, expect[(r.qname, tuple(sorted(r.params.items())))], f"{label} {r.qname} {r.params}")
+        check(shared == (st["shared_batches"] > 0), f"{label}: {st['shared_batches']} shared batches")
+        keep = ("warm_p50_ms", "warm_p99_ms", "warm_rps", "batches", "shared_batches", "cold_compiles",
+                "busy_s", "faults", "degraded")
+        # the whole pass on the host clock, first step to last response
+        out["serving"][label] = {**{k: st[k] for k in keep}, "run_s": run_s, "pass_rps": 64 / run_s}
+        print(f"QueryServer, 64 requests, max_batch=8, share_scans={shared}: warm p50 {st['warm_p50_ms']:.1f} ms, "
+              f"p99 {st['warm_p99_ms']:.1f} ms, warm_rps {st['warm_rps']:.1f}, run_until_done {run_s:.3f} s "
+              f"({64 / run_s:.1f} requests/s), batches {st['batches']}, shared "
+              f"batches {st['shared_batches']}, cold compiles {st['cold_compiles']}; launches "
+              f"{ {k: v for k, v in out['launches'][label].items() if v} }")
+
+    stamp("12. serving: chaos")
+    reset()
+    dates = [round(0.5 + 0.02 * i, 3) for i in range(24)]
+    chaos = QueryServer(session, max_batch=4, seed=1, backoff_s=1e-4, backoff_cap_s=1e-3)
+    chaos.warm_up(["q1"])
+    with faults.injected("kernel-launch", mode="rate", rate=0.1, seed=5):
+        for d in dates:
+            chaos.submit("q1", date=d)
+        chaos.run_until_done()
+    st = chaos.stats()
+    check(st["responses"] == 24 and st["queued"] == 0 and len(chaos.finished) == 24,
+          f"chaos: {st['responses']} of 24 requests terminated")
+    check(st["faults"] > 0, "chaos: no fault fired")
+    for r in chaos.finished:
+        if r.ok:
+            same_items(r.result, session.query("q1", **r.params), f"chaos q1 {r.params}")
+        else:
+            check(isinstance(r.error, ERR.ReproError), f"chaos: an untyped error {r.error!r}")
+    out["chaos"] = {k: st[k] for k in ("responses", "faults", "retries", "degraded", "errors")}
+    print(f"chaos, kernel-launch at rate 0.1 (seed 5), 24 requests: {out['chaos']}; "
+          f"{sum(r.ok for r in chaos.finished)} served")
+    del session, srv, chaos
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["card"] = smi
+    print(f"serving phase: {out['seconds']:.1f}s on {smi}")
     return out
 
 
@@ -1358,6 +1635,7 @@ def main() -> int:
         same_items(got, refs[q], f"{q} (cold run)")
         print(f"cold {q}: {cold:.2f}s, {len(got)} groups match the numpy reference "
               f"(reference {time.perf_counter() - t:.1f}s)")
+    undegraded(session, "cold run")
 
     # -- 4. the per-query path, counts from zero ----------------------------------
     stamp("4. per-query path")
@@ -1379,6 +1657,7 @@ def main() -> int:
         fp.radix_route = real_route
     launches = {"per_query": {name: getattr(mod, name).launches for mod, name in kernels_of_path + dict_kernels}}
     mode_launches = {"per_query": dict(real_fp.mode_launches)}
+    undegraded(session, "per-query path")
     fp_calls, ml_calls = calls["fused_pipeline"], calls["merge_lookup"]
     for q in QUERIES:
         print(f"warm {q}: {walls[q] * 1e3:.1f} ms; regions {modes[q]}")
@@ -1474,6 +1753,7 @@ def main() -> int:
 
     # where a warm pass spends device time, and how long the device idles
     print(json.dumps({"profile": profile_pass(torch, lambda: [session.query(q) for q in QUERIES], 12)}))
+    undegraded(session, "profiled warm pass")
 
     # -- 7. the TPC-H shared batch, counts from zero ----------------------------
     stamp("7. TPC-H shared batch")
@@ -1682,16 +1962,19 @@ def main() -> int:
         ref_jobs = {q: pool.submit(reference_job, src, OOC_SCALE, SEED, q) for q in QUERIES}
 
         stamp("10. chunking lineitem")
+        rss0 = host_rss()
         t0 = time.perf_counter()
         oo = repro_torch.connect(db, device=dev, memory_budget=budget, chunk_rows=OOC_CHUNK_ROWS)
         chunk_s = time.perf_counter() - t0
+        gc.collect()
+        rss1 = host_rss()
         ct = oo.db["lineitem"]
         check(oo.streamed == ("lineitem",), f"the storage plan streams {oo.streamed}, not lineitem alone")
         check(ct.n_chunks == -(-60_000_000 // OOC_CHUNK_ROWS), f"{ct.n_chunks} chunks")
         encodings = {c: dict(sorted(Counter(kinds).items())) for c, kinds in ct.encodings().items()}
         print(f"lineitem: {ct.n_chunks} chunks of {ct.chunk_rows} rows, encoded {ct.encoded_nbytes} B, decoded "
               f"{ct.decoded_nbytes} B ({ct.decoded_nbytes / ct.encoded_nbytes:.2f}x), pinned on the host; "
-              f"chunked in {chunk_s:.1f}s")
+              f"chunked in {chunk_s:.1f}s; host RSS {rss0} B before the session, {rss1} B after")
         print(json.dumps({"lineitem_encodings": encodings}))
 
         stamp("10. resident session at SF 10, cold")
@@ -1735,6 +2018,7 @@ def main() -> int:
         same_items(res_out[q], refs10[q], f"{q} SF 10 resident (warm)")
         print(f"resident SF 10 {q}: warm {res_warm[q] * 1e3:.1f} ms, peak {res_peak[q] / 2**30:.2f} GiB "
               f"({res_before[q] / 2**30:.2f} GiB allocated before the call), modes {resident.report().modes()}")
+    undegraded(resident, "SF 10 resident")
     del resident, db
     E.clear_exec_cache()
     gc.collect()
@@ -1845,6 +2129,7 @@ def main() -> int:
               f"resident {res_peak[q] / 2**30:.2f} GiB ({res_before[q] / 2**30:.2f} GiB before)")
     ooc_profile = profile_pass(torch, lambda: [oo.query(q) for q in QUERIES], 14)
     print(json.dumps({"profile_ooc": ooc_profile}))
+    undegraded(oo, "SF 10 streamed")
 
     # each streamed-kernel region's fold ends in ONE build of its carried
     # accumulator (the per-chunk launches are timed with the other chunks)
@@ -1956,10 +2241,22 @@ def main() -> int:
     inst = install_phase(torch, dev, refs, walls, os.path.dirname(os.path.abspath(__file__)))
     launches.update(inst["launches"])
     fp_err, hb_err = max(fp_err, inst["fp_err"]), max(hb_err, inst["hb_err"])
+    sf1 = inst.pop("db")
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 12. the kernels' line --------------------------------------------------
+    # -- 12. serving: the ladder and the QueryServer, at TPC-H SF 1 -------------
+    serving = serving_phase(torch, dev, sf1, refs, smi)
+    del sf1
+    launches.update(serving["launches"])
+    mode_launches.update(serving["mode_launches"])
+    fp_err, hb_err = max(fp_err, serving["fp_err"]), max(hb_err, serving["hb_err"])
+    for mode, err in serving["fp_mode_err"].items():
+        fp_mode_err[mode] = max(fp_mode_err.get(mode, 0.0), err)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 13. the kernels' line --------------------------------------------------
     fa8k = lm["fa_rows"][0]
     total = {name: sum(path.get(name, 0) for path in launches.values())
              for name in [name for _, name in kernels_of_path] + ["decode", "flash_attention"] + dict_names}
@@ -2038,7 +2335,9 @@ def main() -> int:
                       "ooc_h2d_pinned": ooc_profile.get("h2d_pinned"),
                       "ooc_h2d_pageable": ooc_profile.get("h2d_pageable"),
                       "lm": {k: v for k, v in lm.items() if k not in ("forward_profile", "decode_profile")},
-                      "install": {k: v for k, v in inst.items() if k not in ("fp_err", "hb_err", "fp_mode_err")}}))
+                      "install": {k: v for k, v in inst.items() if k not in ("fp_err", "hb_err", "fp_mode_err")},
+                      "serving": {k: v for k, v in serving.items()
+                                  if k not in ("fp_err", "hb_err", "fp_mode_err", "launches", "mode_launches")}}))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,

@@ -15,6 +15,12 @@ the tables' device (mode ``"xla"``, as the reference computes those regions
 in XLA outside Pallas).  Sorted-probe lookups of sort-family
 dictionaries go through the merge-lookup kernel.
 
+The executable cache (``cached_executable``) plans a query shape once;
+``Executable.call_batched`` runs a batch of bindings as a loop of warm
+calls (the plain loops end on a host-synced ``.any()``, which
+``torch.func.vmap`` cannot batch), and a ``BoundPlan`` comes back as a
+``BoundExecutable`` whose call-time params override the bound ones.
+
 Shared-scan batches (``execute_shared_plan``, ``SharedExecutable``) run
 every plan of a ``plan.SharedPlan`` with each merged region executed once
 for all its branches.  The in-DB ML operators (``sort_groupby_arrays``,
@@ -603,6 +609,12 @@ class ExecutionReport:
     peak_state_bytes: int = 0
     streamed_regions: int = 0
     trace_count: int = 0
+    # fault-tolerance ledger, stamped by Session and QueryServer
+    faults: int = 0  # typed faults observed while producing this result
+    retries: int = 0  # same-mode retry attempts consumed
+    degraded: int = 0  # ladder rungs descended (0 = primary mode)
+    shed: int = 0  # requests shed by admission or deadline in the same round
+    degradation: str = ""  # the rung that served, when degraded
 
     def modes(self) -> Dict[str, str]:
         return {s: r.mode for s, r in self.regions.items()}
@@ -614,10 +626,26 @@ class ExecutionReport:
     def region(self, sym: str) -> Optional[RegionRecord]:
         return self.regions.get(sym)
 
+    def copy(self) -> "ExecutionReport":
+        rep = ExecutionReport(regions={
+            s: RegionRecord(r.sym, r.mode, r.family, r.wall_s, r.chunks, r.h2d_bytes)
+            for s, r in self.regions.items()
+        })
+        for f in (
+            "wall_s", "chunks", "h2d_bytes", "peak_chunk_bytes", "peak_state_bytes",
+            "streamed_regions", "trace_count", "faults", "retries", "degraded", "shed", "degradation",
+        ):
+            setattr(rep, f, getattr(self, f))
+        return rep
+
     def summary(self) -> str:
         parts = [f"wall={self.wall_s * 1e3:.2f}ms"]
         if self.chunks:
             parts.append(f"chunks={self.chunks} h2d={self.h2d_bytes >> 10}KiB")
+        if self.degraded:
+            parts.append(f"degraded={self.degradation or '?'}")
+        if self.faults or self.retries:
+            parts.append(f"faults={self.faults} retries={self.retries}")
         lines = [" ".join(parts)]
         for s, r in self.regions.items():
             lines.append(f"  {s}: {r.mode}" + (f" [{r.family}]" if r.family else ""))
@@ -1710,6 +1738,10 @@ class Executable:
     with the binding passed as 0-d tensors.  ``trace_count`` counts
     captures of the shape (one; rebinding never re-plans)."""
 
+    #: a batch runs as B warm calls: the plain loops end each round on a
+    #: host-synced ``.any()``, which ``torch.func.vmap`` cannot batch
+    vmapped_batches = False
+
     def __init__(self, plan, db: Dict[str, Table], sigma=None):
         self.plan = plan
         self.sigma = sigma
@@ -1718,17 +1750,17 @@ class Executable:
         self.calls = 0
         self.last_report: Optional[ExecutionReport] = None
 
-    def __call__(self, db: Dict[str, Table], params=None):
-        self.calls += 1
-        device = next(iter(db.values())).device
+    def _check_dispatch(self):
+        """The resident whole-plan dispatch's fault points."""
         _faults.check("kernel-launch")
         if self.fused_regions:
             _faults.check("fused-region")
+
+    def _run(self, db: Dict[str, Table], params):
+        self.calls += 1
+        device = next(iter(db.values())).device
         try:
-            out = execute_plan(
-                self.plan, db, sigma=self.sigma,
-                params=coerce_bindings(self.plan, params, device=device),
-            )
+            out = execute_plan(self.plan, db, sigma=self.sigma, params=coerce_bindings(self.plan, params, device=device))
         except Exception as e:  # noqa: BLE001 — boundary translation only
             _raise_classified(e)
         self.trace_count = max(self.trace_count, 1)
@@ -1736,6 +1768,22 @@ class Executable:
         rep.trace_count = self.trace_count
         self.last_report = rep
         return _result_view(out)
+
+    def __call__(self, db: Dict[str, Table], params=None):
+        self._check_dispatch()
+        return self._run(db, params)
+
+    def call_batched(self, db: Dict[str, Table], params_list):
+        """B same-shape requests as B warm calls, with the dispatch points
+        checked once for the batch.  A plan without params runs once and
+        every request shares that result."""
+        if not params_list:
+            return []
+        self._check_dispatch()
+        if not self.plan.params:
+            one = self._run(db, None)
+            return [one for _ in params_list]
+        return [self._run(db, p) for p in params_list]
 
 
 def _result_view(out):
@@ -1751,8 +1799,46 @@ class StreamedExecutable(Executable):
     ``execute_plan`` eagerly on the device the chunks stream to; the report
     carries the call's streaming ledger."""
 
+    def _check_dispatch(self):
+        """None: the streamed executor's fault points are the stream's (``h2d``,
+        ``chunk-decode``) and its resident regions' ``fused-region``, which
+        is why streaming is the degradation ladder's last rung."""
+
+
+@dataclass
+class BoundExecutable:
+    """A cached executable viewed through a ``BoundPlan``'s bindings: the
+    underlying executable is shared across bindings; call-time params
+    override the bound ones."""
+
+    executable: Executable
+    bindings: Dict[str, object]
+
+    def __call__(self, db, params=None):
+        return self.executable(db, {**self.bindings, **(params or {})})
+
+    def call_batched(self, db, params_list):
+        return self.executable.call_batched(db, [{**self.bindings, **(p or {})} for p in params_list])
+
+    @property
+    def trace_count(self) -> int:
+        return self.executable.trace_count
+
+    @property
+    def vmapped_batches(self) -> bool:
+        return self.executable.vmapped_batches
+
+    @property
+    def last_report(self) -> Optional[ExecutionReport]:
+        return self.executable.last_report
+
+    @property
+    def plan(self):
+        return self.executable.plan
+
 
 _EXEC_CACHE: Dict[tuple, Executable] = {}
+_EXEC_CACHE_STATS = {"hits": 0, "misses": 0}
 _EXEC_CACHE_MAX = 64
 
 
@@ -1778,20 +1864,33 @@ def _sigma_signature(sigma) -> tuple:
     )
 
 
-def cached_executable(plan, db: Dict[str, Table], sigma=None) -> Executable:
+def cached_executable(plan, db: Dict[str, Table], sigma=None):
     """The executable cache, keyed by (plan fingerprint, DictChoice tuple,
     table schema, Σ signature); a database with chunked relations gets a
-    :class:`StreamedExecutable`."""
+    :class:`StreamedExecutable`.  A ``BoundPlan`` shares its plan's entry
+    and comes back as a :class:`BoundExecutable` over it."""
+    bound = None
+    if isinstance(plan, P.BoundPlan):
+        bound = plan.binding_map()
+        plan = plan.plan
     key = (plan.fingerprint(), plan.choices, _db_signature(db), _sigma_signature(sigma))
     ex = _EXEC_CACHE.get(key)
     if ex is None:
+        _EXEC_CACHE_STATS["misses"] += 1
+        # a failed compile leaves no entry: a retry compiles from scratch
         _faults.check("compile", detail=str(plan.fingerprint())[:40])
         cls = StreamedExecutable if any(_is_chunked(t) for t in db.values()) else Executable
         ex = cls(plan, db, sigma=sigma)
         if len(_EXEC_CACHE) >= _EXEC_CACHE_MAX:
             _EXEC_CACHE.pop(next(iter(_EXEC_CACHE)))
         _EXEC_CACHE[key] = ex
-    return ex
+    else:
+        _EXEC_CACHE_STATS["hits"] += 1
+    return ex if bound is None else BoundExecutable(ex, bound)
+
+
+def exec_cache_stats() -> Dict[str, int]:
+    return dict(_EXEC_CACHE_STATS, entries=len(_EXEC_CACHE))
 
 
 class SharedExecutable:
@@ -1849,9 +1948,11 @@ def cached_shared_executable(sp, db: Dict[str, Table], sigma=None) -> SharedExec
 
 
 def clear_exec_cache() -> None:
-    """Drop every cached executable, single-query and shared."""
+    """Drop every cached executable, single-query and shared, and reset
+    the cache's hit and miss counts."""
     _EXEC_CACHE.clear()
     _SHARED_EXEC_CACHE.clear()
+    _EXEC_CACHE_STATS.update(hits=0, misses=0)
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,8 @@ otherwise tokens are sampled from ``softmax(logits / temperature)`` with a
 ``torch.Generator`` seeded from ``seed`` (its stream is not JAX's, so runs
 of the two packages agree only at temperature 0).
 
-The same queue/step/drain machinery serves the analytical path in the
-reference's ``repro.serve.query_server``.
+The same queue/step/drain machinery serves the analytical path in
+``serve.query_server``.
 """
 from __future__ import annotations
 

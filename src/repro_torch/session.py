@@ -14,19 +14,30 @@ storage plan keeps on the device only what the budget holds decoded; every
 other relation stays in host memory as encoded chunks (``data.storage``),
 pinned, and each query streams it chunk by chunk — an asynchronous upload,
 the decode kernel on the card, then the region's stages or the
-fused-pipeline kernel per chunk.  Sharding, adaptive racing and the
-degradation ladder are not ported yet (see ROADMAP.md).
+fused-pipeline kernel per chunk.
+
+Every query runs under the degradation ladder (``execute_shape``): a
+device OOM or a repeated transient fault re-runs it one rung down — fused
+→ materialized → streamed resident, streamed → streamed-shrunk under a
+budget — behind per-(shape, mode) circuit breakers, and a degraded result
+is held against the primary rung's result for the same binding
+(``degraded_equal``).  Sharding and adaptive racing are not ported yet, so
+the sharded rungs do not exist here (see ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
+from repro_torch import errors
 from repro_torch.core import llql as L
+from repro_torch.core import cost as C
 from repro_torch.core import plan as P
 from repro_torch.core.cost import AnalyticCostModel, FusionCostModel
 from repro_torch.core.lower import compile as compile_plan
@@ -36,6 +47,13 @@ from repro_torch.data.table import collect_stats, resolve_device, to_numpy
 from repro_torch.exec import engine as E
 from repro_torch.exec.queries import REGISTRY, Query
 
+#: the tolerance a degraded result is held to on the card: the fused
+#: terminal folds float sums by atomics, in another order than the
+#: materialized and streamed folds, so float lanes agree to the suite's
+#: tolerance and key sets and integer lanes exactly
+CROSS_EXECUTOR_RTOL = 3e-3
+CROSS_EXECUTOR_ATOL = 3e-2
+
 
 def result_items(out) -> Dict[int, np.ndarray]:
     """Normalize any executor result to its ``{key: np.ndarray}`` view."""
@@ -44,6 +62,39 @@ def result_items(out) -> Dict[int, np.ndarray]:
     if isinstance(out, dict):
         return {k: to_numpy(v) for k, v in out.items()}
     raise TypeError(f"cannot normalize result of type {type(out).__name__}")
+
+
+def bitwise_equal(a: Dict[int, np.ndarray], b: Dict[int, np.ndarray]) -> bool:
+    """Same key set, identical value bytes per key."""
+    if set(a) != set(b):
+        return False
+    for k, va in a.items():
+        va, vb = np.asarray(va), np.asarray(b[k])
+        if va.shape != vb.shape or va.dtype != vb.dtype or not (va == vb).all():
+            return False
+    return True
+
+
+def degraded_equal(a, b, device) -> bool:
+    """Whether a degraded result ``a`` may stand for the primary rung's
+    ``b`` on ``device``.  On the CPU every rung folds in the same order, so
+    the results must be bitwise equal.  On the card the key sets and
+    integer lanes must be equal and float lanes within
+    ``CROSS_EXECUTOR_RTOL`` / ``ATOL``."""
+    if bitwise_equal(a, b):
+        return True
+    if set(a) != set(b) or torch.device(device).type != "cuda":
+        return False
+    for k, va in a.items():
+        va, vb = np.asarray(va), np.asarray(b[k])
+        if va.shape != vb.shape or va.dtype != vb.dtype:
+            return False
+        if np.issubdtype(va.dtype, np.floating):
+            if not np.allclose(va, vb, rtol=CROSS_EXECUTOR_RTOL, atol=CROSS_EXECUTOR_ATOL):
+                return False
+        elif not (va == vb).all():
+            return False
+    return True
 
 
 @dataclass
@@ -56,6 +107,9 @@ class Shape:
     executable: object
     compile_s: float = 0.0
     served: int = 0
+    synth_runs: int = 0
+    # the ladder's lower rungs, built lazily: mode -> (executable, db)
+    mode_ex: Dict[str, tuple] = field(default_factory=dict)
 
 
 class Session:
@@ -69,6 +123,7 @@ class Session:
         chunk_rows: int = S.CHUNK_ROWS,
         delta=None,
         queries: Optional[Dict[str, Query]] = None,
+        clock=None,
     ):
         self.device = resolve_device(device)
         self.sigma = collect_stats(db)
@@ -81,9 +136,7 @@ class Session:
         self.memory_budget = memory_budget
         self.chunk_rows = chunk_rows
         if memory_budget is not None:
-            host = {name: t.to("cpu") for name, t in db.items()}
-            placed = S.chunk_db(host, memory_budget_bytes=memory_budget, chunk_rows=chunk_rows, sigma=self.sigma)
-            self.db = {name: t.to(self.device) for name, t in placed.items()}
+            self.db = self._chunked(db, memory_budget)
             self.fusion = dataclasses.replace(FusionCostModel(), chunk_rows=float(chunk_rows))
         else:
             self.db = {name: t.to(self.device) for name, t in db.items()}
@@ -91,6 +144,45 @@ class Session:
         self.streamed: Tuple[str, ...] = tuple(sorted(r for r, t in self.db.items() if S.is_chunked(t)))
         self._shapes: Dict[str, Shape] = {}
         self._last_report: Optional[E.ExecutionReport] = None
+
+        # -- fault tolerance ------------------------------------------------
+        #: monotonic clock driving breaker cooldowns (``clock=`` lets tests
+        #: advance time instead of sleeping)
+        self._clock = clock if clock is not None else time.monotonic
+        #: consecutive transient failures before a mode counts as broken
+        self.breaker_threshold = 2
+        #: seconds a tripped (shape, mode) breaker stays open
+        self.breaker_cooldown_s = 30.0
+        self._breaker: Dict[Tuple[str, str], float] = {}  # -> open until
+        self._breaker_fails: Dict[Tuple[str, str], int] = {}
+        #: the primary rung's recent results per (shape, binding), as host
+        #: ``result_items``: a degraded result is checked against them, and
+        #: no device tensor is kept alive for it
+        self._ref_results: Dict[tuple, Dict[int, np.ndarray]] = {}
+        self._ref_results_max = 32
+        #: the streamed rung's database, chunked once on first descent
+        self._degraded_storage_cache = None
+        #: the ladder's counts over the session's lifetime
+        self.fault_stats = {"faults": 0, "retries": 0, "degraded": 0}
+
+    def _chunked(self, src, budget: int) -> Dict[str, object]:
+        """``src`` placed under ``budget`` bytes by the storage plan: a
+        streamed relation is encoded from a host copy made for it alone, or
+        kept as it is when ``src`` already holds it chunked (the session's
+        ``chunk_rows`` encode it the same way again), and bound to the
+        session's device (pinned on the card); a resident relation is moved
+        to, or decoded on, the device."""
+        plan = C.storage_plan(self.sigma, budget, block=S.BLOCK, chunk_rows=self.chunk_rows)
+        db = {}
+        for name, t in src.items():
+            streamed = plan[name].mode == "streamed"
+            if S.is_chunked(t):
+                db[name] = t if streamed else t.decode()
+            elif streamed:
+                db[name] = S.chunk_table(t.to("cpu"), self.chunk_rows, stats=self.sigma.rels.get(name)).to(self.device)
+            else:
+                db[name] = t.to(self.device)
+        return db
 
     def _resolve(self, q: Union[str, Query, L.Expr]) -> Tuple[str, Query]:
         if isinstance(q, str):
@@ -107,6 +199,165 @@ class Session:
             return name, Query(name, lambda: expr, None, None)
         raise TypeError(f"cannot plan a {type(q).__name__}")
 
+    # -- degradation ladder ------------------------------------------------
+    #
+    # Every rung realizes the same LLQL semantics under the same Γ:
+    #
+    #   resident:     fused  →  materialized  →  streamed
+    #   out of core:  streamed  →  streamed-shrunk
+    #
+    # A DeviceOOMError descends at once (the same mode would run out
+    # again); a transient fault re-raises for the caller to retry at the
+    # same rung and descends only after ``breaker_threshold`` consecutive
+    # failures.  A descent opens the (shape, mode) breaker: until its
+    # cooldown ends, requests skip the broken rung.
+
+    def _ladder_modes(self) -> Tuple[str, ...]:
+        if self.memory_budget is not None:
+            return ("streamed", "streamed-shrunk")
+        return ("fused", "materialized", "streamed")
+
+    def _degraded_storage(self):
+        """The streamed rung's ``(db, fusion, streamed)``: the session's
+        tables placed under half its budget, or under half their decoded
+        footprint when resident, so the rung fits where the resident modes
+        did not.  Built once."""
+        if self._degraded_storage_cache is None:
+            if self.memory_budget is not None:
+                budget = max(1, self.memory_budget // 2)
+            else:
+                budget = max(1, sum(
+                    a.numel() * a.element_size() for t in self.db.values() for a in t.columns.values()
+                ) // 2)
+            db = self._chunked(self.db, budget)
+            fusion = dataclasses.replace(FusionCostModel(), chunk_rows=float(self.chunk_rows))
+            self._degraded_storage_cache = (db, fusion, tuple(sorted(r for r, t in db.items() if S.is_chunked(t))))
+        return self._degraded_storage_cache
+
+    def _mode_executable(self, shape: Shape, mode: str):
+        """``(executable, db)`` realizing ``shape`` at rung ``mode``.  The
+        primary rung is the shape's installed executable; lower rungs are
+        built on first use through the same executable cache."""
+        if mode == self._ladder_modes()[0]:
+            return shape.executable, self.db
+        cached = shape.mode_ex.get(mode)
+        if cached is not None:
+            return cached
+        expr = shape.query.llql()
+        if mode == "materialized":
+            # the same plan unfused: node by node, no Pipeline regions
+            db = self.db
+            ex = E.cached_executable(compile_plan(expr, shape.choices), db, sigma=self.sigma)
+        elif mode in ("streamed", "streamed-shrunk"):
+            db, fusion, streamed = self._degraded_storage()
+            plan = P.fuse(compile_plan(expr, shape.choices), sigma=self.sigma, streamed=streamed, fusion=fusion)
+            ex = E.cached_executable(plan, db, sigma=self.sigma)
+        else:  # the sharded rungs come with sharding
+            raise ValueError(f"unknown ladder mode {mode!r}")
+        shape.mode_ex[mode] = (ex, db)
+        return ex, db
+
+    def _trip_breaker(self, name: str, mode: str) -> None:
+        self._breaker[(name, mode)] = self._clock() + self.breaker_cooldown_s
+        self._breaker_fails.pop((name, mode), None)
+
+    def breakers(self) -> Dict[Tuple[str, str], float]:
+        """Open circuit breakers: ``{(shape, mode): seconds left}``."""
+        now = self._clock()
+        return {k: until - now for k, until in self._breaker.items() if until > now}
+
+    def _binding_key(self, name: str, bound) -> tuple:
+        return (name,) + tuple(sorted((k, repr(v)) for k, v in (bound or {}).items()))
+
+    def _validate_degraded(self, shape: Shape, key: tuple, items, mode: str = "") -> None:
+        """Hold a degraded result against the primary rung's result for the
+        same binding, when one is kept, by :func:`degraded_equal`."""
+        ref = self._ref_results.get(key)
+        if ref is None or degraded_equal(items, ref, self.device):
+            return
+        raise errors.ReproError(
+            f"degraded execution of {shape.query.name!r} at {mode!r} diverged from its "
+            f"primary-mode reference — equivalence violation, not noise"
+        )
+
+    def execute_shape(self, shape: Shape, bound=None):
+        """Execute one bound request for ``shape`` under the ladder: start
+        at the first rung whose breaker is closed, descend on
+        ``DeviceOOMError`` or repeated transient failure, re-raise typed
+        transients for the caller to retry.  Returns the raw executor
+        output; ``E.last_report()`` carries the fault and degradation
+        counts."""
+        return self._execute(shape, bound)[0]
+
+    def _execute(self, shape: Shape, bound):
+        """``execute_shape``'s ``(output, result_items)``."""
+        name = shape.query.name
+        modes = self._ladder_modes()
+        now = self._clock()
+        idx = 0
+        while idx < len(modes) - 1 and self._breaker.get((name, modes[idx]), 0.0) > now:
+            idx += 1
+        faults = 0
+        while True:
+            mode = modes[idx]
+            failed = oom = False
+            try:
+                ex, db = self._mode_executable(shape, mode)
+                out = ex(db, bound)
+                if self.device.type == "cuda":
+                    # finish the rung's launches inside the try, so an
+                    # asynchronous failure is triaged at its own rung and
+                    # the next rung does not queue behind its work
+                    torch.cuda.synchronize(self.device)
+            except Exception as e:  # noqa: BLE001 — typed triage below
+                typed = errors.classified(e)
+                if not isinstance(typed, errors.ReproError):
+                    raise  # a genuine bug keeps its type and traceback
+                if isinstance(typed, errors.PlanError):
+                    raise typed from (e if typed is not e else None)
+                faults += 1
+                self.fault_stats["faults"] += 1
+                oom = isinstance(typed, errors.DeviceOOMError)
+                degrade = oom
+                if not degrade and errors.is_transient(typed):
+                    k = (name, mode)
+                    fails = self._breaker_fails.get(k, 0) + 1
+                    self._breaker_fails[k] = fails
+                    degrade = fails >= self.breaker_threshold
+                if not (degrade and idx < len(modes) - 1):
+                    if typed is e:
+                        raise
+                    raise typed from e
+                self._trip_breaker(name, mode)
+                failed = True
+                typed = None
+            if not failed:
+                break
+            if oom and self.device.type == "cuda":
+                # the error's chained traceback kept the failed rung's
+                # frames, and their device tensors, alive; those frames
+                # form reference cycles, so collect them and hand the
+                # freed blocks back before the lower rung allocates
+                gc.collect()
+                torch.cuda.empty_cache()
+            idx += 1
+        # success at rung ``idx``
+        self._breaker_fails.pop((name, mode), None)
+        key = self._binding_key(name, bound)
+        items = result_items(out)
+        if idx == 0:
+            if len(self._ref_results) >= self._ref_results_max:
+                self._ref_results.pop(next(iter(self._ref_results)))
+            self._ref_results[key] = items
+        else:
+            self.fault_stats["degraded"] += 1
+            self._validate_degraded(shape, key, items, mode=mode)
+        rep = E.last_report()
+        rep.faults += faults
+        rep.degraded = idx
+        rep.degradation = mode if idx else ""
+        return out, items
+
     def shape(self, q: Union[str, Query, L.Expr]) -> Shape:
         """The compiled shape for a query — planned once, cached after."""
         name, query = self._resolve(q)
@@ -118,20 +369,21 @@ class Session:
         choices = dict(synthesize(expr, self.sigma, self.delta).choices)
         plan = P.fuse(compile_plan(expr, choices), sigma=self.sigma, streamed=self.streamed, fusion=self.fusion)
         ex = E.cached_executable(plan, self.db, sigma=self.sigma)
-        shape = Shape(query, choices, plan, ex, compile_s=time.perf_counter() - t0)
+        shape = Shape(query, choices, plan, ex, compile_s=time.perf_counter() - t0, synth_runs=1)
         self._shapes[name] = shape
         return shape
 
     def query(self, q: Union[str, Query, L.Expr], **params) -> Dict[int, np.ndarray]:
         """Execute ``q`` (a registered query name, a ``Query`` or an LLQL
         program) and return its ``{key: np.ndarray}`` result.  Bindings are
-        validated here (typed ``PlanError``)."""
+        validated here (typed ``PlanError``), and execution runs under the
+        degradation ladder (``execute_shape``)."""
         shape = self.shape(q)
         E.validate_binding(shape.plan, params, defaults=shape.query.bind_defaults({}))
-        out = shape.executable(self.db, shape.query.bind_defaults(params))
+        _, items = self._execute(shape, shape.query.bind_defaults(params))
         shape.served += 1
         self._last_report = E.last_report()
-        return result_items(out)
+        return items
 
     def report(self) -> Optional[E.ExecutionReport]:
         """The ExecutionReport of this session's last query."""
@@ -157,10 +409,14 @@ def connect(
     chunk_rows: int = S.CHUNK_ROWS,
     delta=None,
     queries: Optional[Dict[str, Query]] = None,
+    clock=None,
 ) -> Session:
     """Open a :class:`Session` over ``db`` (a ``{relation: Table}`` dict) on
     ``device`` — ``"cuda"`` unless another is named; raises when no CUDA
     device exists and none was named.  ``memory_budget`` (bytes of decoded
     columns the device may hold) streams what does not fit, in chunks of
-    ``chunk_rows`` rows."""
-    return Session(db, device=device, memory_budget=memory_budget, chunk_rows=chunk_rows, delta=delta, queries=queries)
+    ``chunk_rows`` rows; ``clock`` drives the circuit breakers' cooldowns."""
+    return Session(
+        db, device=device, memory_budget=memory_budget, chunk_rows=chunk_rows, delta=delta,
+        queries=queries, clock=clock,
+    )

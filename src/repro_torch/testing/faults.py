@@ -24,8 +24,8 @@ point               site
 ``chunk-decode``    per-chunk decode-spec resolution in the streamed loop
                     (``storage.*.chunk_decode_spec``)
 ``dict-build``      dictionary construction (``engine.build_dict``) —
-                    fires at trace time (the build is jitted), so it
-                    models cold-path build failures
+                    the port builds eagerly, so it fires on every call
+                    that builds (the reference's fires at trace time)
 ``shard-exec``      sharded whole-plan dispatch
                     (``distributed.sharded_executor``'s run callable) —
                     the sharded twin of ``kernel-launch``; fires per call,

@@ -1249,3 +1249,87 @@ def test_decode_kernel_at_the_chunk_shape(cuda, n):
             torch.cuda.synchronize()
             assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (name, rows)
             np.testing.assert_array_equal(got[:n].cpu().numpy(), a)
+
+
+# -- the degradation ladder and the QueryServer on the card ------------------
+
+
+@pytest.fixture(scope="module")
+def ladder_db(cuda):
+    db = tpch.generate(scale=0.01, seed=7, device=cuda).tables()
+    return db, {name: q.reference(db, **q.defaults) for name, q in REGISTRY.items()}
+
+
+@pytest.mark.parametrize("qname", sorted(REGISTRY))
+def test_ladder_rungs_on_card(cuda, ladder_db, qname):
+    """Each rung of the resident ladder on the card against the primary by
+    the card's rule (keys and integer lanes exact, floats at the suite's
+    tolerance) and against numpy."""
+    from repro_torch import session as SESS
+
+    db, refs = ladder_db
+    s = repro_torch.connect(db, device=cuda, chunk_rows=16_384)
+    primary = s.query(qname)
+    _same_items(primary, refs[qname])
+    shape = s.shape(qname)
+    bound = shape.query.bind_defaults({})
+    for mode in s._ladder_modes()[1:]:
+        ex, mdb = s._mode_executable(shape, mode)
+        got = SESS.result_items(ex(mdb, bound))
+        assert SESS.degraded_equal(got, primary, cuda), mode
+        _same_items(got, refs[qname])
+    assert s._degraded_storage()[2] == ("lineitem",)
+    # a fault that reaches the streamed rung, through the ladder
+    from repro_torch.testing import faults
+
+    with faults.injected("kernel-launch", mode="always", error="oom"):
+        got = s.query(qname)
+    assert s.report().degradation == "streamed" and s.fault_stats["degraded"] == 1
+    _same_items(got, refs[qname])
+
+
+def test_real_oom_is_served_by_a_lower_rung(cuda):
+    """``repro_torch.testing.oom.oom_job`` at TPC-H SF 0.1 in a fresh process (its
+    caching allocator holds only the job's memory): under a memory-fraction
+    cap between the lighter lower rung's measured peak and the fused
+    pass's, q3's fused pass fails with a real ``torch.cuda.OutOfMemoryError``,
+    classified ``DeviceOOMError``, a lower rung serves the right result, and
+    with the fraction restored the fused rung serves again."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.testing.oom import oom_job
+
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        out = pool.submit(oom_job, 0.1, 7, 65_536, "q3").result()
+    assert out["served"] in ("materialized", "streamed"), out["lines"]
+    assert out["degraded"] >= 1 and out["faults"] >= 1
+
+
+def test_query_server_on_card(cuda, ladder_db):
+    from repro_torch.serve.query_server import QueryServer
+
+    db, _ = ladder_db
+    s = repro_torch.connect(db, device=cuda)
+    reqs = [("q1", {"date": 0.5 + 0.05 * i}) for i in range(4)] + [("q3", {"date": 0.05})] * 2
+    reqs += [("q5", {"region": i}) for i in range(4)] + [("q9", {})] * 2
+    reqs += [("q18", {"threshold": 100.0 + 50.0 * i}) for i in range(4)]
+    srv = QueryServer(s, max_batch=8, share_scans=True)
+    srv.warm_up()
+    for q, p in reqs:
+        srv.submit(q, **p)
+    done = srv.run_until_done()
+    assert len(done) == 16 and all(r.ok for r in done)
+    assert srv.stats()["shared_batches"] > 0
+    for r in done:
+        _same_items(r.result, s.query(r.qname, **r.params))
+
+
+def test_budget_session_shrinks_from_its_own_chunks(cuda):
+    # the shrunk rung reuses the primary's pinned chunks and holds no
+    # decoded host copy of the caller's tables
+    db = tpch.generate(scale=0.002, seed=7, device=cuda).tables()
+    s = repro_torch.connect(db, device=cuda, memory_budget=10**6, chunk_rows=4096)
+    shrunk, _, _ = s._degraded_storage()
+    assert all(shrunk[r] is s.db[r] for r in shrunk if S.is_chunked(s.db[r]))
+    assert not hasattr(s, "base_db")

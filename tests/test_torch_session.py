@@ -70,6 +70,7 @@ def _imports(path: pathlib.Path):
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    assert ROOT / "src" / "repro_torch" / "serve" / "query_server.py" in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
