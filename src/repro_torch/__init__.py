@@ -14,11 +14,16 @@ The installation stage learns the card's own dictionary cost model Δ::
     model = repro_torch.costmodel.install()               # profile, train, store
     session = repro_torch.connect(db, delta=model)
 
+Adaptive planning races near-cost plans on warm-up traffic and serves the
+measured winner::
+
+    session = repro_torch.connect(db, adapt=repro_torch.AdaptConfig(top_k=3))
+
 Entry points run on the card unless the caller names another device
 (``device="cpu"``): the CPU path runs every kernel's plain PyTorch twin.
 """
 
-__all__ = ["connect", "Session", "costmodel"]
+__all__ = ["connect", "Session", "AdaptConfig", "costmodel"]
 
 
 def __getattr__(name):
@@ -27,6 +32,10 @@ def __getattr__(name):
         from repro_torch import session as _session
 
         return getattr(_session, name)
+    if name == "AdaptConfig":
+        from repro_torch.core.adapt import AdaptConfig
+
+        return AdaptConfig
     if name == "costmodel":
         import importlib
 

@@ -5,7 +5,10 @@ A ``QueryServer`` fronts a session and a request queue; requests are
 ``(query name, parameter binding)`` pairs.  Per query shape the server pays
 the planning funnel once (``Session.shape``: Σ, Algorithm 1, lowering,
 fusion, the cached executable); every later request with a fresh binding
-is a warm hit, its parameters passed as 0-d tensors.  Passing a raw
+is a warm hit, its parameters passed as 0-d tensors.  Over an adaptive
+session (``connect(db, adapt=...)``) the cold path runs the session's
+warm-up race, so serving rides the measured winner with no per-request
+replanning; its enumerations count in ``synth_runs``.  Passing a raw
 ``{relation: Table}`` db instead of a session still works, as a deprecated
 shim that opens a session through ``connect``, on the card.
 
@@ -52,9 +55,10 @@ import torch
 
 from repro_torch import errors
 from repro_torch.core import plan as P
+from repro_torch.core.adapt import result_items
 from repro_torch.exec import engine as E
 from repro_torch.exec.queries import QUERIES, Query
-from repro_torch.session import Session, connect, result_items
+from repro_torch.session import Session, connect
 
 #: retry-after hint (seconds) when admission-rejecting before any warm
 #: latency has been observed: a client backing off this long cannot
@@ -182,6 +186,8 @@ class QueryServer:
             return shape
         q = self.queries[qname]
         t0 = self._clock()
+        # the session's planning funnel, with an adaptive session's warm-up
+        # race, so the installed executable is already the measured winner
         ss = self.session.shape(q)
         ex = ss.executable
         ex(self.db, q.bind_defaults({}))  # the first run, so the first serve is warm

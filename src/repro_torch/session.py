@@ -21,8 +21,16 @@ device OOM or a repeated transient fault re-runs it one rung down — fused
 → materialized → streamed resident, streamed → streamed-shrunk under a
 budget — behind per-(shape, mode) circuit breakers, and a degraded result
 is held against the primary rung's result for the same binding
-(``degraded_equal``).  Sharding and adaptive racing are not ported yet, so
-the sharded rungs do not exist here (see ROADMAP.md).
+(``degraded_equal``).  Sharding is not ported yet, so the sharded rungs do
+not exist here (see ROADMAP.md).
+
+With ``adapt=`` truthy the session plans through
+:class:`repro_torch.core.adapt.AdaptivePlanner`: near-cost Alg.-1
+candidates are raced on warm-up traffic, validated by the device's rule
+(``degraded_equal``), and the measured winner per ``(plan fingerprint,
+binding bucket)`` serves steady-state requests with no replanning;
+measured-vs-predicted residuals recalibrate the analytic cost model online
+(DESIGN.md §11).
 """
 from __future__ import annotations
 
@@ -39,62 +47,17 @@ from repro_torch import errors
 from repro_torch.core import llql as L
 from repro_torch.core import cost as C
 from repro_torch.core import plan as P
+from repro_torch.core.adapt import (  # noqa: F401 — bitwise_equal, CROSS_EXECUTOR_* re-exported
+    CROSS_EXECUTOR_ATOL, CROSS_EXECUTOR_RTOL, AdaptConfig, AdaptivePlanner, bitwise_equal, degraded_equal,
+    result_items,
+)
 from repro_torch.core.cost import AnalyticCostModel, FusionCostModel
 from repro_torch.core.lower import compile as compile_plan
 from repro_torch.core.synthesis import synthesize
 from repro_torch.data import storage as S
-from repro_torch.data.table import collect_stats, resolve_device, to_numpy
+from repro_torch.data.table import collect_stats, resolve_device
 from repro_torch.exec import engine as E
 from repro_torch.exec.queries import REGISTRY, Query
-
-#: the tolerance a degraded result is held to on the card: the fused
-#: terminal folds float sums by atomics, in another order than the
-#: materialized and streamed folds, so float lanes agree to the suite's
-#: tolerance and key sets and integer lanes exactly
-CROSS_EXECUTOR_RTOL = 3e-3
-CROSS_EXECUTOR_ATOL = 3e-2
-
-
-def result_items(out) -> Dict[int, np.ndarray]:
-    """Normalize any executor result to its ``{key: np.ndarray}`` view."""
-    if hasattr(out, "items_np"):
-        return out.items_np()
-    if isinstance(out, dict):
-        return {k: to_numpy(v) for k, v in out.items()}
-    raise TypeError(f"cannot normalize result of type {type(out).__name__}")
-
-
-def bitwise_equal(a: Dict[int, np.ndarray], b: Dict[int, np.ndarray]) -> bool:
-    """Same key set, identical value bytes per key."""
-    if set(a) != set(b):
-        return False
-    for k, va in a.items():
-        va, vb = np.asarray(va), np.asarray(b[k])
-        if va.shape != vb.shape or va.dtype != vb.dtype or not (va == vb).all():
-            return False
-    return True
-
-
-def degraded_equal(a, b, device) -> bool:
-    """Whether a degraded result ``a`` may stand for the primary rung's
-    ``b`` on ``device``.  On the CPU every rung folds in the same order, so
-    the results must be bitwise equal.  On the card the key sets and
-    integer lanes must be equal and float lanes within
-    ``CROSS_EXECUTOR_RTOL`` / ``ATOL``."""
-    if bitwise_equal(a, b):
-        return True
-    if set(a) != set(b) or torch.device(device).type != "cuda":
-        return False
-    for k, va in a.items():
-        va, vb = np.asarray(va), np.asarray(b[k])
-        if va.shape != vb.shape or va.dtype != vb.dtype:
-            return False
-        if np.issubdtype(va.dtype, np.floating):
-            if not np.allclose(va, vb, rtol=CROSS_EXECUTOR_RTOL, atol=CROSS_EXECUTOR_ATOL):
-                return False
-        elif not (va == vb).all():
-            return False
-    return True
 
 
 @dataclass
@@ -105,6 +68,7 @@ class Shape:
     choices: Dict[str, object]
     plan: object  # fused physical plan
     executable: object
+    planner: Optional[AdaptivePlanner] = None
     compile_s: float = 0.0
     served: int = 0
     synth_runs: int = 0
@@ -121,6 +85,7 @@ class Session:
         device=None,
         memory_budget: Optional[int] = None,
         chunk_rows: int = S.CHUNK_ROWS,
+        adapt: Union[bool, AdaptConfig] = False,
         delta=None,
         queries: Optional[Dict[str, Query]] = None,
         clock=None,
@@ -129,6 +94,9 @@ class Session:
         self.sigma = collect_stats(db)
         self.delta = delta if delta is not None else AnalyticCostModel()
         self.queries = dict(queries if queries is not None else REGISTRY)
+        self.adapt_config: Optional[AdaptConfig] = None
+        if adapt:
+            self.adapt_config = adapt if isinstance(adapt, AdaptConfig) else AdaptConfig()
         # storage plan: chunk what the budget can't keep resident (encoding
         # runs on host copies), and tell the fusion model the real chunk
         # geometry so Δ_chained prices the spill-vs-chain decision with the
@@ -199,6 +167,11 @@ class Session:
             return name, Query(name, lambda: expr, None, None)
         raise TypeError(f"cannot plan a {type(q).__name__}")
 
+    def _build(self, expr: L.Expr, choices):
+        """Γ → ``(fused plan, executable)`` through the executable cache."""
+        plan = P.fuse(compile_plan(expr, choices), sigma=self.sigma, streamed=self.streamed, fusion=self.fusion)
+        return plan, E.cached_executable(plan, self.db, sigma=self.sigma)
+
     # -- degradation ladder ------------------------------------------------
     #
     # Every rung realizes the same LLQL semantics under the same Γ:
@@ -236,8 +209,9 @@ class Session:
 
     def _mode_executable(self, shape: Shape, mode: str):
         """``(executable, db)`` realizing ``shape`` at rung ``mode``.  The
-        primary rung is the shape's installed executable; lower rungs are
-        built on first use through the same executable cache."""
+        primary rung is the shape's installed executable, read live so that
+        an adaptive reinstall takes effect; lower rungs are built on first
+        use through the same executable cache, under the Γ installed then."""
         if mode == self._ladder_modes()[0]:
             return shape.executable, self.db
         cached = shape.mode_ex.get(mode)
@@ -359,17 +333,33 @@ class Session:
         return out, items
 
     def shape(self, q: Union[str, Query, L.Expr]) -> Shape:
-        """The compiled shape for a query — planned once, cached after."""
+        """The compiled shape for a query — planned once, cached after.
+        Adaptive sessions also run the warm-up race here (on the query's
+        default binding), so the installed executable is already the
+        measured winner when the first request lands."""
         name, query = self._resolve(q)
         shape = self._shapes.get(name)
         if shape is not None:
             return shape
         expr = query.llql()
         t0 = time.perf_counter()
-        choices = dict(synthesize(expr, self.sigma, self.delta).choices)
-        plan = P.fuse(compile_plan(expr, choices), sigma=self.sigma, streamed=self.streamed, fusion=self.fusion)
-        ex = E.cached_executable(plan, self.db, sigma=self.sigma)
-        shape = Shape(query, choices, plan, ex, compile_s=time.perf_counter() - t0, synth_runs=1)
+        planner = None
+        synth_runs = 1
+        if self.adapt_config is not None:
+            planner = AdaptivePlanner(
+                expr, self.sigma, self.delta,
+                make_executor=lambda ch: _ParamRunner(self, expr, ch),
+                config=self.adapt_config,
+                fingerprint=compile_plan(expr, {}).fingerprint(),
+                device=self.device,
+            )
+            choices = planner.choose(query.bind_defaults({}))
+            synth_runs = len(planner.races)  # one enumeration a race round
+        else:
+            choices = dict(synthesize(expr, self.sigma, self.delta).choices)
+        plan, ex = self._build(expr, choices)
+        shape = Shape(query, dict(choices), plan, ex, planner=planner, compile_s=time.perf_counter() - t0,
+                      synth_runs=synth_runs)
         self._shapes[name] = shape
         return shape
 
@@ -380,7 +370,18 @@ class Session:
         degradation ladder (``execute_shape``)."""
         shape = self.shape(q)
         E.validate_binding(shape.plan, params, defaults=shape.query.bind_defaults({}))
-        _, items = self._execute(shape, shape.query.bind_defaults(params))
+        bound = shape.query.bind_defaults(params)
+        if shape.planner is not None:
+            choices = shape.planner.choose(bound)
+            if choices != shape.choices:
+                # a race moved the winner: reinstall it (the executable
+                # cache returns the one the race ran); the ladder's primary
+                # rung reads ``shape.executable``, lower rungs keep the Γ
+                # they were built with
+                shape.choices = dict(choices)
+                shape.plan, shape.executable = self._build(shape.query.llql(), choices)
+            shape.synth_runs = len(shape.planner.races)
+        _, items = self._execute(shape, bound)
         shape.served += 1
         self._last_report = E.last_report()
         return items
@@ -390,9 +391,10 @@ class Session:
         return self._last_report
 
     def explain(self, q: Union[str, Query, L.Expr]) -> Dict[str, object]:
-        """Planning summary for a shape: chosen Γ and the fused plan."""
+        """Planning summary for a shape: chosen Γ, the fused plan and — for
+        adaptive sessions — the race history."""
         shape = self.shape(q)
-        return {
+        out: Dict[str, object] = {
             "choices": {s: str(c) for s, c in sorted(shape.choices.items())},
             "plan": shape.plan.describe(),
             "compile_s": shape.compile_s,
@@ -400,6 +402,40 @@ class Session:
             "device": str(self.device),
             "streamed": self.streamed,
         }
+        if shape.planner is not None:
+            out["races"] = [
+                {
+                    "bucket": rec.bucket,
+                    "lanes": [
+                        {
+                            "swapped": ln.candidate.swapped or "<winner>",
+                            "modeled_ms": ln.candidate.modeled_s * 1e3,
+                            "measured_ms": ln.measured_s * 1e3 if ln.measured_s < float("inf") else None,
+                            "validated": ln.validated,
+                        }
+                        for ln in rec.lanes
+                    ],
+                }
+                for rec in shape.planner.races
+            ]
+        return out
+
+
+class _ParamRunner:
+    """Adapter: the planner's ``run(params)`` over a session executable for
+    one fixed Γ, built on first call through the executable cache (resident
+    or streamed, as the session is)."""
+
+    def __init__(self, session: Session, expr: L.Expr, choices):
+        self.session = session
+        self.expr = expr
+        self.choices = choices
+        self._ex = None
+
+    def __call__(self, params=None):
+        if self._ex is None:
+            _, self._ex = self.session._build(self.expr, self.choices)
+        return self._ex(self.session.db, params)
 
 
 def connect(
@@ -407,6 +443,7 @@ def connect(
     device=None,
     memory_budget: Optional[int] = None,
     chunk_rows: int = S.CHUNK_ROWS,
+    adapt: Union[bool, AdaptConfig] = False,
     delta=None,
     queries: Optional[Dict[str, Query]] = None,
     clock=None,
@@ -415,8 +452,11 @@ def connect(
     ``device`` — ``"cuda"`` unless another is named; raises when no CUDA
     device exists and none was named.  ``memory_budget`` (bytes of decoded
     columns the device may hold) streams what does not fit, in chunks of
-    ``chunk_rows`` rows; ``clock`` drives the circuit breakers' cooldowns."""
+    ``chunk_rows`` rows; ``adapt`` — ``True`` or an :class:`AdaptConfig` —
+    races near-cost plans on warm-up traffic, validates them by the
+    device's rule and serves the measured winner; ``clock`` drives the
+    circuit breakers' cooldowns."""
     return Session(
-        db, device=device, memory_budget=memory_budget, chunk_rows=chunk_rows, delta=delta,
+        db, device=device, memory_budget=memory_budget, chunk_rows=chunk_rows, adapt=adapt, delta=delta,
         queries=queries, clock=clock,
     )

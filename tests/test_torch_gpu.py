@@ -30,7 +30,9 @@ global memory, one key, window offset 1 and EMPTY/PAD probes, V = 1 to 9;
 the sorted lookup on each of its paths (the global search, the table on
 chip, sampled at S = 2, 4 and 32; odd C, a live count no multiple of S,
 fewer keys than a stride, runs of equal keys), both with unaligned inputs,
-bit for bit.
+bit for bit.  An adaptive session races q1 and q3 at TPC-H SF 0.01, every
+lane valid by the card's rule, and records whether two runs of one Γ are
+bitwise equal.
 """
 import contextlib
 import dataclasses
@@ -1333,3 +1335,29 @@ def test_budget_session_shrinks_from_its_own_chunks(cuda):
     shrunk, _, _ = s._degraded_storage()
     assert all(shrunk[r] is s.db[r] for r in shrunk if S.is_chunked(s.db[r]))
     assert not hasattr(s, "base_db")
+
+
+# -- adaptive planning on the card --------------------------------------------
+
+
+@pytest.mark.parametrize("qname", ["q1", "q3"])
+def test_race_validates_by_the_card_rule(cuda, ladder_db, record_property, qname):
+    """A race on the card validates every lane by ``degraded_equal``'s card
+    rule and serves the numpy result.  Two runs of one Γ are held to that
+    rule too; whether they are also bitwise equal is recorded, not
+    asserted: the fused terminal folds float sums by atomics, so a bitwise
+    check cannot be the card's validation."""
+    from repro_torch.core import adapt as A
+
+    db, refs = ladder_db
+    s = repro_torch.connect(db, device=cuda, adapt=A.AdaptConfig(band=50.0, top_k=3, warmup=1, repeats=1))
+    _same_items(s.query(qname), refs[qname])
+    shape = s.shape(qname)
+    rec = shape.planner.races[0]
+    assert len(rec.lanes) >= 2 and all(ln.validated for ln in rec.lanes)
+    run = shape.planner.executor_for(rec.lanes[0].candidate.choices)
+    bound = shape.query.bind_defaults({})
+    a, b = A.result_items(run(bound)), A.result_items(run(bound))
+    assert A.degraded_equal(a, b, cuda)
+    record_property("bitwise_equal_runs", A.bitwise_equal(a, b))
+    print(f"{qname}: two runs of the model's Γ bitwise equal: {A.bitwise_equal(a, b)}")
