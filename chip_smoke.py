@@ -187,13 +187,31 @@ Phases (any failure exits non-zero):
    this clean data validates by the card's rule (``degraded_equal``), and
    the phase prints its wall split into ``nvcc`` builds, the lanes' first
    calls and their timed windows.  The bars are printed, not enforced;
+15. (after 14, before 13's line) sharding at TPC-H SF 1 (phase 11's data,
+   lineitem and orders row-sharded, shard i on card i mod the card count):
+   ``connect(db, shards=4)`` runs the five queries cold, then warm with the
+   counts at 0, each equal to numpy and to a resident session's result;
+   each region's mode, each kernel's launches by shard (the fused
+   pipeline's by mode; the shuffles' rebuilds apart), each Repartition /
+   Exchange's kind, rows and bytes moved and device span (CUDA events around
+   it) are printed, and every launch of that pass is held against its
+   twin; warm walls and peak device memory beside the resident session;
+   q3 and q18 at 2 shards; the sharded ladder (a ``fused-region`` OOM served
+   by materialized-sharded, a persistent ``shard-exec`` OOM by
+   single-shard, each by ``degraded_equal``'s rule, with its warm wall);
+   24 requests through ``QueryServer`` (``max_batch=4``), each equal to
+   ``session.query``; a chaos pass (``shard-exec`` at rate 0.1, seed 5, 40
+   q1 requests) in which every request terminates; ``share_scans=True``
+   refused; an adaptive 4-shard race of q3, every lane validated.  After the
+   warm pass, the first launch of each (kernel, region) is held against its
+   twin;
 13. print the ``-Xptxas -v`` report of one generated fused region of each
    dictionary-terminal path (a block-private table, device memory, radix)
    and the kernels' JSON line (the fused pipeline's entry with its modes:
    launches on the main paths and the largest error per mode, and the
    timed launches' sums), then ``{"ok": true, "device": ...}`` last.
 
-Every phase that runs ``Session.query`` (3–6, 10 and 11) requires the
+Every phase that runs ``Session.query`` (3–6, 10, 11 and 15) requires the
 session to have served each query at its primary rung, with no fault: the
 ladder must not turn a broken kernel into a slower answer.
 
@@ -438,12 +456,13 @@ def torch_equal(a, b):
 
 
 @contextlib.contextmanager
-def recording(targets, distinct=False):
+def recording(targets, distinct=False, key=None):
     """Set each wrapper's launch count to 0, then record every call of
     ``module.name`` as ``(args, kwargs, out)`` under ``calls[name]`` (an
     ``init=`` launch's state copied before and after it).  With
     ``distinct``, only the first call on each set of input tensors is kept
-    (a timing loop repeats one input; the record keeps it once)."""
+    (a timing loop repeats one input; the record keeps it once); with
+    ``key``, only the first call of each ``key(name, args, kwargs)``."""
     calls, saved = {}, []
     for mod, name in targets:
         real = getattr(mod, name)
@@ -451,12 +470,15 @@ def recording(targets, distinct=False):
         log, seen = [], set()
         calls[name] = log
 
-        def rec(*args, _real=real, _log=log, _seen=seen, **kw):
+        def rec(*args, _real=real, _log=log, _seen=seen, _name=name, **kw):
             before = snapshot(kw)
             out = _real(*args, **kw)
-            key = tuple(id(a) for a in args if hasattr(a, "data_ptr"))
-            if not distinct or key not in _seen:  # recorded inputs stay alive, so their ids stay theirs
-                _seen.add(key)
+            if key is not None:
+                k = key(_name, args, kw)
+            else:
+                k = tuple(id(a) for a in args if hasattr(a, "data_ptr"))
+            if not (distinct or key is not None) or k not in _seen:  # recorded inputs stay alive, so their ids stay theirs
+                _seen.add(k)
                 # a carried accumulator is folded again by the next launch:
                 # keep this launch's result as it was
                 _log.append((args, before, out if before is kw else tuple(t.clone() for t in out)))
@@ -1965,6 +1987,365 @@ def adapt_phase(torch, dev, db, refs, learned, smi):
     return out
 
 
+# the sharding phase: the shard counts, the ladder's scenarios
+# (tests/test_serve_sharded.py:165-238), the requests and the race
+SHARDS, SHARDS_SMALL = 4, 2
+SHARDS_SMALL_QUERIES = ("q3", "q18")
+# (rung, query, fault point, error, rungs descended)
+SHARD_LADDER = (
+    ("materialized-sharded", "q1", "fused-region", "oom", 1),
+    ("single-shard", "q1", "shard-exec", "oom", 2),
+)
+SHARD_REQUESTS = 24
+# the chaos pass: q1 requests under shard-exec at rate 0.1, seed 5, whose
+# draws first fire at the 28th sharded dispatch (one a request)
+SHARD_CHAOS_REQUESTS = 40
+SHARD_RACE = dict(band=50.0, top_k=2, warmup=1, repeats=1)
+
+
+def launch_key(name, args, kw):
+    """A launch's kernel and region: a fused launch's program and mode, a
+    dictionary kernel's input shapes."""
+    if name == "fused_pipeline":
+        return name, repr(args[0]), fused_mode(kw)
+    return name, tuple(tuple(a.shape) for a in args if hasattr(a, "shape"))
+
+
+def sharding_phase(torch, dev, db, refs, smi):
+    """Sharded execution at TPC-H SF 1 on the card (phase 11's data):
+    ``connect(db, shards=4)`` runs the five queries cold, then warm with
+    the counts at 0 (launches by shard, collectives timed, every launch
+    against its twin), q3 and q18 also at 2 shards, walls and peaks beside
+    a resident session; the sharded ladder under injected faults; a
+    ``QueryServer`` over the sharded session and a chaos pass; an adaptive
+    4-shard race of q3.  Steps after the warm pass hold the first launch of
+    each (kernel, region) against its twin."""
+    import repro_torch
+    from repro_torch import errors as ERR
+    from repro_torch import session as SESS
+    from repro_torch.core import adapt as A
+    from repro_torch.dicts import base as dbase
+    from repro_torch.exec import distributed as D
+    from repro_torch.exec import engine as E
+    from repro_torch.kernels import decode as DK
+    from repro_torch.kernels import fused_pipeline as fp
+    from repro_torch.kernels import hash_build as hb
+    from repro_torch.kernels import hash_probe as hp
+    from repro_torch.kernels import merge_lookup as ml
+    from repro_torch.kernels import segment_reduce as sr
+    from repro_torch.kernels import sorted_lookup as sl
+    from repro_torch.serve.query_server import QueryServer
+    from repro_torch.testing import faults
+
+    t_phase = time.perf_counter()
+    # the sharded sessions name the card without an index: shard i then lives
+    # on card i mod the card count, as connect(db, shards=N) places it
+    spread = torch.device(dev.type)
+    kernels = [(fp, "fused_pipeline"), (ml, "merge_lookup"), (sr, "segment_reduce"), (DK, "decode"),
+               (hp, "hash_probe"), (sl, "sorted_lookup"), (hb, "hash_build")]
+    real = {name: getattr(mod, name) for mod, name in kernels}
+    out = {"launches": {}, "mode_launches": {}, "fp_mode_err": {}, "fp_err": 0.0, "hb_err": 0.0,
+           "twin_checked": 0}
+
+    def counts():
+        return {name: fn.launches for name, fn in real.items()}
+
+    def tally():
+        return {**counts(), **{f"fused_pipeline {m}": n for m, n in real["fused_pipeline"].mode_launches.items()}}
+
+    def check_all(calls, what):
+        """Every recorded launch against its twin."""
+        out["fp_err"] = max(out["fp_err"], check_fused(torch, fp, dbase, calls["fused_pipeline"], what,
+                                                       out["fp_mode_err"]))
+        check_merge(torch, ml, calls["merge_lookup"], what)
+        check_segment(torch, sr, calls["segment_reduce"], what)
+        for args, _, o in calls["decode"]:
+            check(torch.equal(o.view(torch.int32), DK.decode_plain(*args).view(torch.int32)),
+                  f"{what}: a decode launch differs from its plain twin")
+        out["hb_err"] = max(out["hb_err"], check_dict(torch, dbase, calls, what))
+        out["twin_checked"] += sum(len(v) for v in calls.values())
+
+    # each shard's launches: the counts read around every step of a shard's
+    # node loop; a collective's launches (the shuffle's rebuilds) apart
+    by_shard, colls, state = {}, [], {"q": ""}
+    real_resume, real_rep, real_exch = E._resume, D._plan_repartition, D._plan_exchange
+
+    def resume(shard, steps, value):
+        c0 = tally()
+        try:
+            return real_resume(shard, steps, value)
+        finally:
+            row = by_shard.setdefault(shard, Counter())
+            for k, n in tally().items():
+                row[k] += n - c0[k]
+
+    def timed_collective(real_fn, moved):
+        def fn(node, operands, *rest, **kw):
+            rows, nbytes = moved(node, operands)
+            c0 = counts()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = real_fn(node, operands, *rest, **kw)
+            end.record()
+            colls.append({"query": state["q"], "node": node.out, "kind": f"{type(node).__name__} {node.kind}",
+                          "rows": rows, "bytes": nbytes, "events": (start, end),
+                          "launches": {k: n - c0[k] for k, n in counts().items() if n - c0[k]}})
+            return res
+        return fn
+
+    def repartition_moved(node, frames):
+        """Rows that cross (a broadcast's reach every shard) and their bytes,
+        every column of every bound variable."""
+        rows = sum(int(f.primary.live_mask().sum()) for f in frames)
+        rows *= len(frames) if node.kind == "broadcast" else 1
+        f0 = frames[0]
+        return rows, rows * sum(a.element_size() for v in f0.order for a in f0.tables[v].columns.values())
+
+    def exchange_moved(node, operands):
+        """A shuffle's live entries (key and value lanes); an allreduce's
+        records to the first shard and back."""
+        if node.kind == "allreduce":
+            fields = len(operands[0]) if isinstance(operands[0], dict) else operands[0].numel()
+            return 2 * (len(operands) - 1), 2 * (len(operands) - 1) * 4 * fields
+        rows = sum(int(b.res.arrays()[2].sum()) for b in operands)
+        return rows, rows * 4 * (1 + int(operands[0].res.arrays()[1].shape[1]))
+
+    E._resume = resume
+    D._plan_repartition = timed_collective(real_rep, repartition_moved)
+    D._plan_exchange = timed_collective(real_exch, exchange_moved)
+    try:
+        stamp(f"15. sharding: {SHARDS} shards on the card, cold")
+        print(f"card: {smi}")
+        resident = repro_torch.connect(db, device=dev)
+        sess = repro_torch.connect(db, device=spread, shards=SHARDS)
+        n_cards = torch.cuda.device_count()
+        want = [torch.device("cuda", i % n_cards) if spread.type == "cuda" else spread for i in range(SHARDS)]
+        check(list(sess.mesh.devices) == want, f"{SHARDS} shards on {n_cards} card(s): {sess.mesh.devices}")
+        print(f"{SHARDS} shards span {len(set(sess.mesh.devices))} of {n_cards} card(s)")
+        res_items, cold = {}, {}
+        for q in QUERIES:
+            res_items[q] = resident.query(q)
+            got, cold[q] = wall(torch, lambda: sess.query(q))
+            same_items(got, refs[q], f"{q} at {SHARDS} shards (cold) against numpy")
+            same_items(got, res_items[q], f"{q} at {SHARDS} shards (cold) against the resident session")
+            print(f"cold {q} at {SHARDS} shards: {cold[q]:.2f}s; Γ {sess.explain(q)['choices']}")
+        undegraded(sess, f"{SHARDS} shards, cold")
+
+        stamp(f"15. sharding: {SHARDS} shards, warm, counts from zero, every launch against its twin")
+        by_shard.clear()
+        colls.clear()
+        walls4, modes4, coll4 = {}, {}, {}
+        with recording(kernels) as calls:
+            for q in QUERIES:
+                state["q"] = q
+                got, walls4[q] = wall(torch, lambda: sess.query(q))
+                modes4[q] = sess.report().modes()
+                check(sess.report().shards == SHARDS, f"{q}: the report counts {sess.report().shards} shards")
+                same_items(got, refs[q], f"{q} at {SHARDS} shards (warm) against numpy")
+                same_items(got, res_items[q], f"{q} at {SHARDS} shards (warm) against the resident session")
+        state["q"] = ""
+        undegraded(sess, f"{SHARDS} shards, warm")
+        out["launches"]["sharded_4"] = counts()
+        out["mode_launches"]["sharded_4"] = dict(real["fused_pipeline"].mode_launches)
+        out["by_shard"] = {s: dict(c) for s, c in sorted(by_shard.items())}
+        torch.cuda.synchronize()
+        for c in colls:
+            start, end = c.pop("events")
+            c["device_ms"] = start.elapsed_time(end)
+        for q in QUERIES:
+            coll4[q] = [c for c in colls if c["query"] == q]
+        in_colls = Counter()
+        for q in QUERIES:
+            for c in coll4[q]:
+                in_colls.update(c["launches"])
+        out["collective_launches"] = dict(in_colls)
+        print(f"launches at {SHARDS} shards, warm pass of the five: {out['launches']['sharded_4']}; "
+              f"fused pipeline by mode {out['mode_launches']['sharded_4']}")
+        for s, row in out["by_shard"].items():
+            print(f"  shard {s}: " + ", ".join(f"{k} {n}" for k, n in sorted(row.items()) if n))
+        print(f"  inside collectives (the shuffles' rebuilds, one a destination shard): {out['collective_launches']}")
+        check(out["launches"]["sharded_4"]["fused_pipeline"] >= SHARDS,
+              f"{out['launches']['sharded_4']['fused_pipeline']} fused-pipeline launches at {SHARDS} shards")
+        check(out["launches"]["sharded_4"]["hash_build"] >= SHARDS, "no hash build at the shards")
+        check(sum(out["by_shard"][s]["fused_pipeline"] for s in out["by_shard"]) + in_colls["fused_pipeline"]
+              == out["launches"]["sharded_4"]["fused_pipeline"], "launches by shard do not add up")
+        check(all(out["by_shard"].get(s, {}).get("fused_pipeline", 0) for s in range(SHARDS)),
+              f"a shard launched no fused pipeline: {out['by_shard']}")
+        for q in QUERIES:
+            print(f"{q} at {SHARDS} shards: warm {walls4[q] * 1e3:.1f} ms; regions {modes4[q]}")
+            for c in coll4[q]:
+                print(f"  {c['node']}: {c['kind']}, {c['rows']} rows, {c['bytes']} B moved, device span "
+                      f"{c['device_ms']:.3f} ms, launches inside {c['launches']}")
+        t0 = time.perf_counter()
+        check_all(calls, f"{SHARDS} shards")
+        del calls
+        print(f"every launch of the warm pass against its twin ({time.perf_counter() - t0:.1f}s); max "
+              f"|fused - twin| {out['fp_err']:.4g}, max |hash build - twin| {out['hb_err']:.4g}")
+        out["collectives"] = coll4
+
+        stamp("15. sharding: warm walls and peaks against the resident session")
+        rows = {}
+        for q in QUERIES:
+            row = {}
+            for label, s in (("sharded", sess), ("resident", resident)):
+                gc.collect()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                _, w = wall(torch, lambda: s.query(q))
+                row[f"{label}_ms"], row[f"{label}_peak"], row[f"{label}_before"] = (
+                    w * 1e3, torch.cuda.max_memory_allocated(), before)
+            rows[q] = row
+            print(f"{q}: warm {row['sharded_ms']:.1f} ms at {SHARDS} shards, {row['resident_ms']:.1f} ms resident; "
+                  f"peak {row['sharded_peak'] / 2**30:.2f} / {row['resident_peak'] / 2**30:.2f} GiB "
+                  f"({row['resident_before'] / 2**30:.2f} GiB allocated before)")
+        out["walls"] = rows
+
+        stamp(f"15. sharding: {', '.join(SHARDS_SMALL_QUERIES)} at {SHARDS_SMALL} shards")
+        sess2 = repro_torch.connect(db, device=spread, shards=SHARDS_SMALL)
+        out["shards_2"] = {}
+        with recording(kernels, key=launch_key) as calls:
+            for q in SHARDS_SMALL_QUERIES:
+                got, c = wall(torch, lambda: sess2.query(q))
+                same_items(got, refs[q], f"{q} at {SHARDS_SMALL} shards against numpy")
+                same_items(got, res_items[q], f"{q} at {SHARDS_SMALL} shards against the resident session")
+                _, w = wall(torch, lambda: sess2.query(q))
+                out["shards_2"][q] = {"cold_s": c, "warm_ms": w * 1e3}
+                print(f"{q} at {SHARDS_SMALL} shards: cold {c:.2f}s, warm {w * 1e3:.1f} ms; regions "
+                      f"{sess2.report().modes()}")
+        undegraded(sess2, f"{SHARDS_SMALL} shards")
+        out["launches"]["sharded_2"] = counts()
+        out["mode_launches"]["sharded_2"] = dict(real["fused_pipeline"].mode_launches)
+        check_all(calls, f"{SHARDS_SMALL} shards")
+        del calls, sess2
+    finally:
+        E._resume, D._plan_repartition, D._plan_exchange = real_resume, real_rep, real_exch
+
+    stamp("15. sharding: the sharded ladder")
+    t = [0.0]
+    lad = repro_torch.connect(db, device=spread, shards=SHARDS, clock=lambda: t[0])
+    out["rungs"] = []
+    for rung, q, point, error, down in SHARD_LADDER:
+        clean = lad.query(q)  # the primary rung's result, kept for the check
+        lad._breaker.clear()
+        lad._breaker_fails.clear()
+        with faults.injected(point, mode="always", error=error):  # the rung's first run
+            _, first_s = wall(torch, lambda: lad.query(q))
+        lad._breaker.clear()
+        lad._breaker_fails.clear()
+        with recording(kernels, key=launch_key) as calls, faults.injected(point, mode="always", error=error):
+            got = lad.query(q)
+        rep = lad.report()
+        launched = {k: n for k, n in counts().items() if n}
+        out["launches"][f"sharded_ladder_{rung}"] = counts()
+        out["mode_launches"][f"sharded_ladder_{rung}"] = dict(real["fused_pipeline"].mode_launches)
+        check((rep.degradation, rep.degraded, rep.faults) == (rung, down, down),
+              f"{q} under {point}/{error}: served {rep.degradation!r} after {rep.degraded} rungs and {rep.faults} faults")
+        if rung == "materialized-sharded":
+            check(not launched.get("fused_pipeline"), f"{q}'s {rung} rung launched the fused pipeline")
+        check(SESS.degraded_equal(got, clean, dev, across_executors=rung == "single-shard"),
+              f"{q} at {rung} differs from its primary result")
+        same_items(got, refs[q], f"{q} at {rung} against numpy")
+        check_all(calls, f"{q} at {rung}")
+        del calls
+        _, warm_s = wall(torch, lambda: lad.query(q))  # the open breakers pin the rung
+        check(lad.report().degradation == rung, f"{q}: the breakers did not pin {rung}")
+        out["rungs"].append({"rung": rung, "query": q, "fault": f"{point}/{error}", "first_s": first_s,
+                             "warm_ms": warm_s * 1e3, "launches": launched, "breakers": sorted(lad.breakers())})
+        print(f"{q} at {rung} (under {point}/{error}, {down} rungs down): first run {first_s:.2f}s, warm "
+              f"{warm_s * 1e3:.1f} ms; launches {launched}; breakers open {sorted(m for _, m in lad.breakers())}")
+    del lad
+
+    stamp(f"15. sharding: {SHARD_REQUESTS} requests through QueryServer, max_batch=4")
+    reqs = []
+    for i in range(max(len(v) for v in SERVE_BINDINGS.values())):
+        reqs += [(q, SERVE_BINDINGS[q][i]) for q in QUERIES if i < len(SERVE_BINDINGS[q])]
+    reqs = reqs[:SHARD_REQUESTS]
+    expect = {}
+    for q, params in reqs:
+        key = (q, tuple(sorted(params.items())))
+        if key not in expect:
+            expect[key] = sess.query(q, **params)
+            check(sess.report().degraded == 0, f"{q} {params} was served below its primary rung")
+    srv = QueryServer(sess, max_batch=4)
+    srv.warm_up()
+    for q, params in reqs:
+        srv.submit(q, **params)
+    with recording(kernels, key=launch_key) as calls:
+        t_run = time.perf_counter()
+        srv.run_until_done()
+        run_s = time.perf_counter() - t_run
+    out["launches"]["sharded_serving"] = counts()
+    out["mode_launches"]["sharded_serving"] = dict(real["fused_pipeline"].mode_launches)
+    st = srv.stats()
+    check(st["responses"] == SHARD_REQUESTS and st["queued"] == 0 and all(r.ok for r in srv.finished),
+          f"sharded serving: {st['responses']} responses, errors {[r.error_info for r in srv.finished if not r.ok][:3]}")
+    for r in srv.finished:
+        same_items(r.result, expect[(r.qname, tuple(sorted(r.params.items())))], f"sharded serving {r.qname} {r.params}")
+    check_all(calls, "sharded serving")
+    del calls
+    keep = ("warm_p50_ms", "warm_p99_ms", "warm_rps", "batches", "cold_compiles", "busy_s", "faults", "degraded")
+    out["serving"] = {**{k: st[k] for k in keep}, "run_s": run_s, "pass_rps": SHARD_REQUESTS / run_s}
+    print(f"QueryServer over {SHARDS} shards, {SHARD_REQUESTS} requests, max_batch=4: warm p50 "
+          f"{st['warm_p50_ms']:.1f} ms, p99 {st['warm_p99_ms']:.1f} ms, warm_rps {st['warm_rps']:.1f}, "
+          f"run_until_done {run_s:.3f} s, batches {st['batches']}; launches "
+          f"{ {k: v for k, v in out['launches']['sharded_serving'].items() if v} }")
+
+    stamp("15. sharding: chaos, and share_scans refused")
+    dates = [round(0.5 + 0.01 * i, 3) for i in range(SHARD_CHAOS_REQUESTS)]
+    chaos = QueryServer(sess, max_batch=4, seed=1, backoff_s=1e-4, backoff_cap_s=1e-3)
+    chaos.warm_up(["q1"])
+    with faults.injected("shard-exec", mode="rate", rate=0.1, seed=5):
+        for d in dates:
+            chaos.submit("q1", date=d)
+        chaos.run_until_done()
+    st = chaos.stats()
+    check(st["responses"] == len(dates) and st["queued"] == 0 and len(chaos.finished) == len(dates),
+          f"sharded chaos: {st['responses']} of {len(dates)} requests terminated")
+    check(st["faults"] > 0, "sharded chaos: no fault fired")
+    for r in chaos.finished:
+        if r.ok:
+            same_items(r.result, sess.query("q1", **r.params), f"sharded chaos q1 {r.params}")
+        else:
+            check(isinstance(r.error, ERR.ReproError), f"sharded chaos: an untyped error {r.error!r}")
+    out["chaos"] = {k: st[k] for k in ("responses", "faults", "retries", "degraded", "errors")}
+    try:
+        QueryServer(sess, share_scans=True)
+        check(False, "share_scans=True over a sharded session was not refused")
+    except ERR.UnsupportedSessionError as e:
+        out["share_scans_refused"] = str(e)
+    print(f"sharded chaos, shard-exec at rate 0.1 (seed 5), {len(dates)} requests: {out['chaos']}; "
+          f"{sum(r.ok for r in chaos.finished)} served; share_scans=True refused: {out['share_scans_refused']!r}")
+    del srv, chaos
+
+    stamp(f"15. sharding: an adaptive {SHARDS}-shard race of q3")
+    race = repro_torch.connect(db, device=spread, shards=SHARDS, adapt=A.AdaptConfig(**SHARD_RACE))
+    with recording(kernels, key=launch_key) as calls:
+        got, race_s = wall(torch, lambda: race.query("q3"))
+    out["launches"]["sharded_race"] = counts()
+    out["mode_launches"]["sharded_race"] = dict(real["fused_pipeline"].mode_launches)
+    same_items(got, refs["q3"], "q3 raced at 4 shards against numpy")
+    check_all(calls, "sharded race")
+    del calls
+    planner = race.shape("q3").planner
+    lanes = [ln for rec in planner.races for ln in rec.lanes]
+    check(len(lanes) >= 2 and all(ln.validated for ln in lanes),
+          f"sharded race: {[(ln.candidate.swapped, ln.validated) for ln in lanes]}")
+    out["race"] = [{"swapped": ln.candidate.swapped or "<winner>", "modeled_s": ln.candidate.modeled_s,
+                    "measured_s": ln.measured_s, "first_s": ln.first_s, "validated": ln.validated} for ln in lanes]
+    for ln in out["race"]:
+        print(f"  q3 lane {ln['swapped']}: modeled {ln['modeled_s'] * 1e3:.4f} ms, measured "
+              f"{ln['measured_s'] * 1e3:.3f} ms, first call {ln['first_s']:.2f} s, validated {ln['validated']}")
+    print(f"q3 race at {SHARDS} shards: {race_s:.2f}s, {len(lanes)} lanes, all validated")
+    del race, sess, resident
+    D.clear_sharded_cache()  # its entries hold the database and the shards' tables
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["card"] = smi
+    print(f"sharding phase: {out['seconds']:.1f}s on {smi}; {out['twin_checked']} launches held against their twins")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2664,8 +3045,13 @@ def main() -> int:
 
     # -- 14. adaptive planning: races at TPC-H SF 1 -------------------------------
     adapt = adapt_phase(torch, dev, sf1, refs, learned, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 15. sharding: 4 and 2 shards on the card at TPC-H SF 1 ---------------
+    sharding = sharding_phase(torch, dev, sf1, refs, smi)
     del sf1, learned
-    for phase in (serving, adapt):
+    for phase in (serving, adapt, sharding):
         launches.update(phase["launches"])
         mode_launches.update(phase["mode_launches"])
         fp_err, hb_err = max(fp_err, phase["fp_err"]), max(hb_err, phase["hb_err"])
@@ -2757,7 +3143,9 @@ def main() -> int:
                       "serving": {k: v for k, v in serving.items()
                                   if k not in ("fp_err", "hb_err", "fp_mode_err", "launches", "mode_launches")},
                       "adapt": {k: v for k, v in adapt.items()
-                                if k not in ("fp_err", "hb_err", "fp_mode_err", "launches", "mode_launches")}}))
+                                if k not in ("fp_err", "hb_err", "fp_mode_err", "launches", "mode_launches")},
+                      "sharding": {k: v for k, v in sharding.items()
+                                   if k not in ("fp_err", "hb_err", "fp_mode_err", "launches", "mode_launches")}}))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,

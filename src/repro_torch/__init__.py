@@ -19,6 +19,11 @@ measured winner::
 
     session = repro_torch.connect(db, adapt=repro_torch.AdaptConfig(top_k=3))
 
+Sharded execution row-shards lineitem and orders over N shards, each on
+a card (all on one card where there is one)::
+
+    session = repro_torch.connect(db, shards=4)
+
 Entry points run on the card unless the caller names another device
 (``device="cpu"``): the CPU path runs every kernel's plain PyTorch twin.
 """

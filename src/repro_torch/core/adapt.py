@@ -208,16 +208,18 @@ def bitwise_equal(a: Dict[int, np.ndarray], b: Dict[int, np.ndarray]) -> bool:
     return True
 
 
-def degraded_equal(a, b, device) -> bool:
+def degraded_equal(a, b, device, across_executors: bool = False) -> bool:
     """Whether result ``a`` may stand for result ``b`` of the same query on
     ``device``: a degraded rung's for the primary rung's, or a raced lane's
     for the model-chosen lane's.  On the CPU every plan folds in row order,
     so the results must be bitwise equal.  On the card the key sets and
     integer lanes must be equal and float lanes within
-    ``CROSS_EXECUTOR_RTOL`` / ``ATOL``."""
+    ``CROSS_EXECUTOR_RTOL`` / ``ATOL``; ``across_executors`` (a sharded
+    result against a single-device one, whose float folds differ in order)
+    applies the card's rule on every device."""
     if bitwise_equal(a, b):
         return True
-    if set(a) != set(b) or torch.device(device).type != "cuda":
+    if set(a) != set(b) or not (across_executors or torch.device(device).type == "cuda"):
         return False
     for k, va in a.items():
         va, vb = np.asarray(va), np.asarray(b[k])
@@ -277,7 +279,8 @@ class AdaptivePlanner:
     result``.  Executors are cached per Γ so racing never rebuilds on later
     rounds; the winner per ``(fingerprint, binding bucket)`` serves
     steady-state traffic with no replanning — ``choose`` is a dict
-    lookup."""
+    lookup.  ``net`` and ``sharded_rels`` price the candidates for a sharded
+    executor (Δ_net), as synthesis does."""
 
     def __init__(
         self,
@@ -289,6 +292,8 @@ class AdaptivePlanner:
         fingerprint: str = "",
         candidates: Sequence[str] = DEFAULT_CANDIDATES,
         device="cpu",
+        net=None,
+        sharded_rels: Optional[Tuple[str, ...]] = None,
     ):
         self.expr = expr
         self.sigma = sigma
@@ -298,6 +303,8 @@ class AdaptivePlanner:
         self.fingerprint = fingerprint
         self.candidates = tuple(candidates)
         self.device = torch.device(device)
+        self.net = net
+        self.sharded_rels = sharded_rels
         self.winners: Dict[Tuple, GammaDict] = {}
         self.races: List[RaceRecord] = []
         self._counts: Dict[Tuple, int] = {}
@@ -342,6 +349,7 @@ class AdaptivePlanner:
         cands = enumerate_candidates(
             self.expr, self.sigma, self.delta,
             band=cfg.band, top_k=cfg.top_k, candidates=self.candidates,
+            net=self.net, sharded_rels=self.sharded_rels,
         )
         record = RaceRecord(bucket)
         reference: Optional[Dict[int, np.ndarray]] = None

@@ -1,6 +1,6 @@
 """Vectorized physical operators — the generated-engine runtime, in PyTorch.
 
-The twin of ``repro.exec.engine`` for the in-memory, single-device path.
+The twin of ``repro.exec.engine``.
 Static shapes throughout: selection is masking (never compaction), joins
 are FK index-gathers with found-masks, group-bys are fixed-capacity
 dictionary builds.  ``repro`` traces the whole plan under ``jax.jit``; the
@@ -20,6 +20,13 @@ The executable cache (``cached_executable``) plans a query shape once;
 calls (the plain loops end on a host-synced ``.any()``, which
 ``torch.func.vmap`` cannot batch), and a ``BoundPlan`` comes back as a
 ``BoundExecutable`` whose call-time params override the bound ones.
+
+The node loop is a generator a shard (``_plan_steps``): it stops at each
+``Repartition`` / ``Exchange`` node that has an implementation, so
+``execute_plan_lockstep`` runs one loop per shard database in lockstep and
+realizes each collective over every shard at once (the sharded executor,
+``exec.distributed``); ``execute_plan`` is that over one shard, whose
+collectives are the identity unless hooks are given.
 
 Shared-scan batches (``execute_shared_plan``, ``SharedExecutable``) run
 every plan of a ``plan.SharedPlan`` with each merged region executed once
@@ -281,27 +288,126 @@ def _capacity(frame: Frame, keyexpr, ds: str, sigma) -> int:
     return capacity_for(ds, frame.primary.nrows)
 
 
-def execute_plan(plan, db: Dict[str, Table], sigma=None, allow_sorted: bool = True, params=None):
+def execute_plan(plan, db: Dict[str, Table], sigma=None, allow_sorted: bool = True, params=None,
+                 exchange_impl=None, repartition_impl=None):
     """Run a physical plan (``repro_torch.core.plan``) against a database.
     ``allow_sorted=False`` disables the sorted-input/merge fast paths;
-    ``params`` supplies the plan's free ``L.Param`` values."""
-    env: Dict[str, object] = {}
-    refs: Dict[str, object] = {}
+    ``params`` supplies the plan's free ``L.Param`` values.
+
+    ``exchange_impl`` realizes Exchange nodes and ``repartition_impl``
+    Repartition nodes, as in :func:`execute_plan_lockstep` (here over one
+    shard); without them both are the identity, rows being all here."""
+    return execute_plan_lockstep(plan, [db], sigma, allow_sorted, [params], exchange_impl, repartition_impl)[0]
+
+
+def execute_plan_lockstep(plan, dbs, sigma=None, allow_sorted: bool = True, params_list=None,
+                          exchange_impl=None, repartition_impl=None):
+    """Run ``plan`` once per shard database of ``dbs``, the shards' node
+    loops in lockstep: each loop advances up to the next node that has an
+    implementation (``Repartition``: ``repartition_impl(node, frames,
+    params_list)``; ``Exchange``: ``exchange_impl(node, operands)``, the
+    shuffle's per-shard dictionaries or the allreduce's scalar records),
+    which takes every shard's operand at once and returns each shard's part
+    of the collective's result; then every loop resumes with its part.  One
+    report covers the call: a region's record holds the shards' summed wall.
+    Returns the shards' results in ``dbs`` order."""
+    params_list = list(params_list) if params_list is not None else [None] * len(dbs)
+    at = tuple(t for t, impl in ((P.Repartition, repartition_impl), (P.Exchange, exchange_impl)) if impl is not None)
     rep = _begin_report()
     t_plan = time.perf_counter()
     try:
-        for node in plan.nodes:
-            t_node = time.perf_counter()
-            _exec_node(node, env, refs, db, sigma, allow_sorted, params)
-            if isinstance(node, P.Pipeline):
-                rec = rep.regions.get(node.out)
-                if rec is not None and rec.wall_s == 0.0:
-                    rec.wall_s = time.perf_counter() - t_node
-        if plan.result is not None and isinstance(env.get(plan.result), _PendingStream):
-            env[plan.result].force(env, refs, sigma, allow_sorted, params)
-        return _plan_result(plan, env, refs)
+        timed: set = set()
+        steps = [
+            _plan_steps(plan, db, sigma, allow_sorted, p, at, rep, timed, shard)
+            for shard, (db, p) in enumerate(zip(dbs, params_list))
+        ]
+        return _lockstep(steps, exchange_impl, repartition_impl)
     finally:
         _end_report(rep, time.perf_counter() - t_plan)
+
+
+class Collective(NamedTuple):
+    """A ``Repartition`` or ``Exchange`` node one shard's node loop has
+    reached, with that shard's operand — the Repartition's frame, the
+    shuffle Exchange's partial dictionary (a ``BuiltDict``), the allreduce
+    Exchange's scalar record — and its binding.  The loop resumes with the
+    shard's part of the collective's result."""
+
+    node: object
+    operand: object
+    params: object
+
+
+def _note_wall(rep, sym: str, dt: float, timed: set, key, shard: int) -> None:
+    """Add a node's host time to its region record: shard 0 sets a record
+    no streamed region has timed itself, later shards add to it."""
+    rec = rep.regions.get(sym)
+    if rec is None:
+        return
+    if shard == 0:
+        if rec.wall_s == 0.0:
+            rec.wall_s = dt
+            timed.add(key)
+    elif key in timed:
+        rec.wall_s += dt
+
+
+def _plan_steps(plan, db, sigma, allow_sorted, params, at, rep, timed, shard):
+    """One shard's node loop as a generator: it yields a
+    :class:`Collective` at each node of the types ``at`` and is resumed
+    with the shard's part of the result; it returns the plan's result."""
+    env: Dict[str, object] = {}
+    refs: Dict[str, object] = {}
+    for node in plan.nodes:
+        if isinstance(node, at):
+            yield from _collective(node, env, refs, sigma, allow_sorted, params)
+            continue
+        t_node = time.perf_counter()
+        _exec_node(node, env, refs, db, sigma, allow_sorted, params)
+        if isinstance(node, P.Pipeline):
+            _note_wall(rep, node.out, time.perf_counter() - t_node, timed, node.out, shard)
+    if plan.result is not None and isinstance(env.get(plan.result), _PendingStream):
+        env[plan.result].force(env, refs, sigma, allow_sorted, params)
+    return _plan_result(plan, env, refs)
+
+
+def _collective(node, env, refs, sigma, allow_sorted, params):
+    """Yield one shard's operand of a Repartition / Exchange node and store
+    the part of the result it is resumed with."""
+    if isinstance(node, P.Repartition):
+        env[node.out] = yield Collective(node, _frame_of(node.source, env, refs, sigma, allow_sorted, params), params)
+    elif node.kind == "shuffle":
+        env[node.out] = yield Collective(node, env[node.source], params)
+    else:  # allreduce over a scalar ref record
+        refs[node.source] = yield Collective(node, refs[node.source], params)
+
+
+def _resume(shard: int, steps, value):
+    """Advance shard ``shard``'s node loop to its next collective."""
+    return steps.send(value)
+
+
+def _lockstep(steps, exchange_impl, repartition_impl):
+    """Drive the shards' node loops together: run each up to its next
+    collective in shard order, realize the collective over all of them,
+    resume each with its part; return the loops' results."""
+    sent: list = [None] * len(steps)
+    while True:
+        got, results = [], []
+        for shard, g in enumerate(steps):
+            try:
+                got.append(_resume(shard, g, sent[shard]))
+            except StopIteration as stop:
+                results.append(stop.value)
+        if len(results) == len(steps):
+            return results
+        if results or any(c.node is not got[0].node for c in got):
+            raise RuntimeError("the shards' node loops reached different collectives")
+        node, operands = got[0].node, [c.operand for c in got]
+        if isinstance(node, P.Repartition):
+            sent = list(repartition_impl(node, operands, [c.params for c in got]))
+        else:
+            sent = list(exchange_impl(node, operands))
 
 
 def _plan_result(plan, env, refs):
@@ -317,22 +423,28 @@ def _plan_result(plan, env, refs):
     return out
 
 
+def _frame_of(sym: str, env, refs, sigma, allow_sorted, params) -> Frame:
+    """The frame bound to ``sym``, its pending stream spilled or its chunked
+    relation decoded for a bare-node consumer."""
+    v = env[sym]
+    if not isinstance(v, Frame):
+        raise TypeError(f"{sym} is not a row frame")
+    p0 = v.tables[v.order[0]]
+    if isinstance(p0, _PendingStream):  # bare-node consumer: spill
+        p0 = p0.force(env, refs, sigma, allow_sorted, params)
+    if _is_chunked(p0):  # bare-node fallback: materialize the relation
+        v = Frame({**v.tables, v.order[0]: p0.decode()}, v.order, v.rels)
+        env[sym] = v
+    return v
+
+
 def _exec_node(node, env, refs, db, sigma, allow_sorted, params):
     """Execute ONE plan node against (env, refs)."""
     def rowfn(x, tables):
         return compile_rowfn_frame(x, tables, params)
 
     def frame_of(sym: str) -> Frame:
-        v = env[sym]
-        if not isinstance(v, Frame):
-            raise TypeError(f"{sym} is not a row frame")
-        p0 = v.tables[v.order[0]]
-        if isinstance(p0, _PendingStream):  # bare-node consumer: spill
-            p0 = p0.force(env, refs, sigma, allow_sorted, params)
-        if _is_chunked(p0):  # bare-node fallback: materialize the relation
-            v = Frame({**v.tables, v.order[0]: p0.decode()}, v.order, v.rels)
-            env[sym] = v
-        return v
+        return _frame_of(sym, env, refs, sigma, allow_sorted, params)
 
     if isinstance(node, P.Scan):
         if node.source in env:
@@ -410,7 +522,7 @@ def _exec_node(node, env, refs, db, sigma, allow_sorted, params):
         _run_pipeline(node, env, refs, db, sigma, allow_sorted, params)
 
     elif isinstance(node, (P.Repartition, P.Exchange)):
-        # single device: identity (rows already all "here")
+        # no collective implementation given: identity (rows all "here")
         if node.source in env:
             env[node.out] = env[node.source]
 
@@ -609,6 +721,7 @@ class ExecutionReport:
     peak_state_bytes: int = 0
     streamed_regions: int = 0
     trace_count: int = 0
+    shards: int = 1  # shards the call ran on (the sharded executor's)
     # fault-tolerance ledger, stamped by Session and QueryServer
     faults: int = 0  # typed faults observed while producing this result
     retries: int = 0  # same-mode retry attempts consumed
@@ -633,13 +746,15 @@ class ExecutionReport:
         })
         for f in (
             "wall_s", "chunks", "h2d_bytes", "peak_chunk_bytes", "peak_state_bytes",
-            "streamed_regions", "trace_count", "faults", "retries", "degraded", "shed", "degradation",
+            "streamed_regions", "trace_count", "shards", "faults", "retries", "degraded", "shed", "degradation",
         ):
             setattr(rep, f, getattr(self, f))
         return rep
 
     def summary(self) -> str:
         parts = [f"wall={self.wall_s * 1e3:.2f}ms"]
+        if self.shards > 1:
+            parts.append(f"shards={self.shards}")
         if self.chunks:
             parts.append(f"chunks={self.chunks} h2d={self.h2d_bytes >> 10}KiB")
         if self.degraded:
@@ -659,6 +774,19 @@ _LAST_REPORT = ExecutionReport()
 def last_report() -> ExecutionReport:
     """The ExecutionReport of the most recent execution in this process."""
     return _LAST_REPORT
+
+
+def republish_report(base: Optional[ExecutionReport], wall_s: float, trace_count: int = 0,
+                     shards: int = 1) -> ExecutionReport:
+    """Publish a copy of ``base`` with a call's wall time, capture count and
+    shard count (the sharded executor's report of each call)."""
+    global _LAST_REPORT
+    rep = base.copy() if base is not None else ExecutionReport()
+    rep.wall_s = wall_s
+    rep.trace_count = trace_count
+    rep.shards = shards
+    _LAST_REPORT = rep
+    return rep
 
 
 def _begin_report() -> ExecutionReport:
@@ -1559,29 +1687,48 @@ def _run_shared_region(region, envs, refss, db, sigma, allow_sorted, params_list
         _record_region(br.pipe.out, f"shared:{len(plain)}", family=_terminal_family(rest[-1]))
 
 
-def execute_shared_plan(sp, db: Dict[str, Table], sigma=None, allow_sorted: bool = True, params_list=None):
+def execute_shared_plan(sp, db: Dict[str, Table], sigma=None, allow_sorted: bool = True, params_list=None,
+                        exchange_impl=None, repartition_impl=None):
     """Execute every plan of a ``SharedPlan``, running each shared-scan
     region once for all its branches.  Results come back in ``sp.plans``
-    order, each equal to what per-query ``execute_plan`` returns."""
+    order, each equal to what per-query ``execute_plan`` returns.  The
+    collective hooks are :func:`execute_plan`'s."""
+    return execute_shared_plan_lockstep(sp, [db], sigma, allow_sorted, [params_list], exchange_impl,
+                                        repartition_impl)[0]
+
+
+def execute_shared_plan_lockstep(sp, dbs, sigma=None, allow_sorted: bool = True, params_lists=None,
+                                 exchange_impl=None, repartition_impl=None):
+    """:func:`execute_shared_plan` once per shard database of ``dbs``, the
+    shards' schedulers in lockstep at their collectives, as
+    :func:`execute_plan_lockstep` runs plans.  Returns each shard's list of
+    results."""
     nplans = len(sp.plans)
-    if params_list is None:
-        params_list = [None] * nplans
-    envs: List[Dict[str, object]] = [{} for _ in range(nplans)]
-    refss: List[Dict[str, object]] = [{} for _ in range(nplans)]
+    params_lists = list(params_lists) if params_lists is not None else [None] * len(dbs)
+    at = tuple(t for t, impl in ((P.Repartition, repartition_impl), (P.Exchange, exchange_impl)) if impl is not None)
     rep = _begin_report()
     t_plan = time.perf_counter()
     try:
-        return _execute_shared_plan_body(sp, db, sigma, allow_sorted, params_list, envs, refss, rep)
+        timed: set = set()
+        steps = [
+            _shared_plan_steps(sp, db, sigma, allow_sorted, list(pl) if pl is not None else [None] * nplans,
+                               at, rep, timed, shard)
+            for shard, (db, pl) in enumerate(zip(dbs, params_lists))
+        ]
+        return _lockstep(steps, exchange_impl, repartition_impl)
     finally:
         _end_report(rep, time.perf_counter() - t_plan)
 
 
-def _execute_shared_plan_body(sp, db, sigma, allow_sorted, params_list, envs, refss, rep):
-    """The readiness scheduler: each plan advances node by node until it
-    stalls on a shared region that has not run; a region runs once every
-    branch's external inputs (build-side dictionaries of its own plan)
-    exist; nodes a region covers are skipped, since the region publishes
-    their terminal symbols."""
+def _shared_plan_steps(sp, db, sigma, allow_sorted, params_list, at, rep, timed, shard):
+    """The readiness scheduler of one shard, as a generator that yields at
+    its collectives (see :func:`_plan_steps`): each plan advances node by
+    node until it stalls on a shared region that has not run; a region runs
+    once every branch's external inputs (build-side dictionaries of its own
+    plan) exist; nodes a region covers are skipped, since the region
+    publishes their terminal symbols."""
+    envs: List[Dict[str, object]] = [{} for _ in sp.plans]
+    refss: List[Dict[str, object]] = [{} for _ in sp.plans]
     region_of: Dict[Tuple[int, str], int] = {}
     for ri, rg in enumerate(sp.regions):
         for b in rg.branches:
@@ -1610,13 +1757,13 @@ def _execute_shared_plan_body(sp, db, sigma, allow_sorted, params_list, envs, re
                 ri = region_of.get((i, nd.out))
                 if ri is not None and not done[ri]:
                     break  # stalled on a pending shared region
-                if ri is None:
+                if ri is None and isinstance(nd, at):
+                    yield from _collective(nd, envs[i], refss[i], sigma, allow_sorted, params_list[i])
+                elif ri is None:
                     t_node = time.perf_counter()
                     _exec_node(nd, envs[i], refss[i], db, sigma, allow_sorted, params_list[i])
                     if isinstance(nd, P.Pipeline):
-                        rec = rep.regions.get(nd.out)
-                        if rec is not None and rec.wall_s == 0.0:
-                            rec.wall_s = time.perf_counter() - t_node
+                        _note_wall(rep, nd.out, time.perf_counter() - t_node, timed, (i, nd.out), shard)
                 pos[i] += 1
                 progress = True
         if all(pos[i] >= len(p.nodes) for i, p in enumerate(sp.plans)):
@@ -1626,10 +1773,8 @@ def _execute_shared_plan_body(sp, db, sigma, allow_sorted, params_list, envs, re
                 t_rg = time.perf_counter()
                 _run_shared_region(rg, envs, refss, db, sigma, allow_sorted, params_list)
                 dt = time.perf_counter() - t_rg
-                for b in rg.branches:
-                    rec = rep.regions.get(b.pipe.stages[-1].out)
-                    if rec is not None and rec.wall_s == 0.0:
-                        rec.wall_s = dt
+                for bi, b in enumerate(rg.branches):
+                    _note_wall(rep, b.pipe.stages[-1].out, dt, timed, ("region", ri, bi), shard)
                 done[ri] = True
                 progress = True
         if not progress:  # pragma: no cover

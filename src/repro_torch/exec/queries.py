@@ -568,6 +568,15 @@ def run(qname: str, db, choices: GammaDict = None, **params):
     New code goes through ``repro_torch.connect(db).query(qname, **params)``."""
     return REGISTRY[qname].run(db, choices, **params)
 
+
+# The TPC-H fact tables: row-sharded under the sharded executor, every
+# dimension table replicated.  With both sharded, every query exercises the
+# partitioning-property planner: Q3/Q18 build dictionaries from sharded
+# orders, Q5/Q9 also probe those hash-partitioned dictionaries from sharded
+# lineitem chains.
+FACT_RELS: Tuple[str, ...] = ("lineitem", "orders")
+
+
 def synthesize_choices(
     qname: str, db: Dict[str, Table], delta, extra_syms: Tuple[str, ...] = ()
 ) -> GammaDict:

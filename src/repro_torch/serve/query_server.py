@@ -41,7 +41,14 @@ On the card a batch's launches are finished inside its ``try`` (a device
 synchronize), so an asynchronous failure is triaged with its batch; the
 clock stops once the results are on the host, so the latency counters, the
 EWMA and ``warm_rps`` measure what a client waits for.
-Sharded sessions are not ported, so neither is sharded serving.
+
+Sharded sessions (``connect(db, shards=N)``) serve through the same loop:
+``session.shape`` compiles onto ``distributed.cached_sharded_executor`` and
+the ``ShardedExecutable`` speaks the executable interface, so admission,
+deadlines, shedding, retry and the sharded ladder apply unchanged; a
+sharded batch is B warm calls.  Only ``share_scans=True`` is refused
+(:class:`UnsupportedSessionError` at construction): cross-query shared-scan
+merging is per-host.
 """
 from __future__ import annotations
 
@@ -132,6 +139,13 @@ class QueryServer:
         if not isinstance(session, Session):
             # deprecated shim: a raw {relation: Table} db opens a session on the card
             session = connect(session, delta=delta, queries=queries)
+        if session.mesh is not None and share_scans:
+            raise errors.UnsupportedSessionError(
+                f"share_scans=True cannot front a sharded session "
+                f"({session.shards} shards): cross-query shared-scan "
+                f"merging is per-host only; serve sharded sessions with "
+                f"share_scans=False"
+            )
         self.session = session
         self.db = session.db
         self.delta = session.delta

@@ -21,8 +21,15 @@ device OOM or a repeated transient fault re-runs it one rung down — fused
 → materialized → streamed resident, streamed → streamed-shrunk under a
 budget — behind per-(shape, mode) circuit breakers, and a degraded result
 is held against the primary rung's result for the same binding
-(``degraded_equal``).  Sharding is not ported yet, so the sharded rungs do
-not exist here (see ROADMAP.md).
+(``degraded_equal``).
+
+``connect(db, shards=N)`` runs the fact tables (``FACT_RELS``: lineitem and
+orders) row-sharded over an N-way mesh (``exec.distributed``): choices are
+synthesized under Δ_net, each shape compiles onto
+``distributed.cached_sharded_executor``, and the ladder is fused-sharded →
+materialized-sharded → single-shard.  The shards live on the session's
+device's cards, shard ``i`` on ``cuda:(i % device_count)`` (all on one card
+where there is one), or all on the host with ``device="cpu"``.
 
 With ``adapt=`` truthy the session plans through
 :class:`repro_torch.core.adapt.AdaptivePlanner`: near-cost Alg.-1
@@ -56,8 +63,9 @@ from repro_torch.core.lower import compile as compile_plan
 from repro_torch.core.synthesis import synthesize
 from repro_torch.data import storage as S
 from repro_torch.data.table import collect_stats, resolve_device
+from repro_torch.exec import distributed as D
 from repro_torch.exec import engine as E
-from repro_torch.exec.queries import REGISTRY, Query
+from repro_torch.exec.queries import FACT_RELS, REGISTRY, Query
 
 
 @dataclass
@@ -85,11 +93,17 @@ class Session:
         device=None,
         memory_budget: Optional[int] = None,
         chunk_rows: int = S.CHUNK_ROWS,
+        shards: int = 0,
         adapt: Union[bool, AdaptConfig] = False,
         delta=None,
         queries: Optional[Dict[str, Query]] = None,
         clock=None,
     ):
+        if memory_budget is not None and shards > 1:
+            raise ValueError(
+                "out-of-core streaming and sharded execution are separate "
+                "executors; open one session per regime"
+            )
         self.device = resolve_device(device)
         self.sigma = collect_stats(db)
         self.delta = delta if delta is not None else AnalyticCostModel()
@@ -110,6 +124,17 @@ class Session:
             self.db = {name: t.to(self.device) for name, t in db.items()}
             self.fusion = None
         self.streamed: Tuple[str, ...] = tuple(sorted(r for r, t in self.db.items() if S.is_chunked(t)))
+
+        # sharded execution: one mesh per session, the fact tables row-sharded
+        self.shards = int(shards or 0)
+        self.mesh = None
+        self.axis = "data"
+        self.shard_rels: Tuple[str, ...] = ()
+        self.net = None
+        if self.shards > 1:
+            self.mesh = D.make_mesh({self.axis: self.shards}, device=self.device)
+            self.shard_rels = FACT_RELS
+            self.net = C.NetCostModel(n_shards=self.shards)
         self._shapes: Dict[str, Shape] = {}
         self._last_report: Optional[E.ExecutionReport] = None
 
@@ -168,7 +193,15 @@ class Session:
         raise TypeError(f"cannot plan a {type(q).__name__}")
 
     def _build(self, expr: L.Expr, choices):
-        """Γ → ``(fused plan, executable)`` through the executable cache."""
+        """Γ → ``(plan, executable)`` through the executable caches: the
+        fused plan and its executable, or on a sharded session the compiled
+        plan and its sharded executable."""
+        if self.mesh is not None:
+            plan = compile_plan(expr, choices)
+            run = D.cached_sharded_executor(
+                plan, self.db, self.mesh, self.axis, shard_rels=self.shard_rels, sigma=self.sigma,
+            )
+            return plan, D.ShardedExecutable(run, self.db)
         plan = P.fuse(compile_plan(expr, choices), sigma=self.sigma, streamed=self.streamed, fusion=self.fusion)
         return plan, E.cached_executable(plan, self.db, sigma=self.sigma)
 
@@ -178,6 +211,7 @@ class Session:
     #
     #   resident:     fused  →  materialized  →  streamed
     #   out of core:  streamed  →  streamed-shrunk
+    #   sharded:      fused-sharded  →  materialized-sharded  →  single-shard
     #
     # A DeviceOOMError descends at once (the same mode would run out
     # again); a transient fault re-raises for the caller to retry at the
@@ -186,6 +220,8 @@ class Session:
     # cooldown ends, requests skip the broken rung.
 
     def _ladder_modes(self) -> Tuple[str, ...]:
+        if self.mesh is not None:
+            return ("fused-sharded", "materialized-sharded", "single-shard")
         if self.memory_budget is not None:
             return ("streamed", "streamed-shrunk")
         return ("fused", "materialized", "streamed")
@@ -212,7 +248,10 @@ class Session:
         primary rung is the shape's installed executable, read live so that
         an adaptive reinstall takes effect; lower rungs are built on first
         use through the same executable cache, under the Γ installed then."""
-        if mode == self._ladder_modes()[0]:
+        modes = self._ladder_modes()
+        if mode not in modes:
+            raise ValueError(f"unknown ladder mode {mode!r}; this session's ladder is {modes}")
+        if mode == modes[0]:
             return shape.executable, self.db
         cached = shape.mode_ex.get(mode)
         if cached is not None:
@@ -222,12 +261,27 @@ class Session:
             # the same plan unfused: node by node, no Pipeline regions
             db = self.db
             ex = E.cached_executable(compile_plan(expr, shape.choices), db, sigma=self.sigma)
-        elif mode in ("streamed", "streamed-shrunk"):
+        elif mode == "materialized-sharded":
+            # the same legalized plan with the per-shard phase unfused: the
+            # collectives and placement as before, no Pipeline regions
+            db = self.db
+            run = D.cached_sharded_executor(
+                compile_plan(expr, shape.choices), db, self.mesh, self.axis,
+                shard_rels=self.shard_rels, sigma=self.sigma, fuse=False,
+            )
+            ex = D.ShardedExecutable(run, db)
+        elif mode == "single-shard":
+            # the plan fused for one device over the whole database (the
+            # session's tables, which the sharded executor slices into its
+            # shards), no collectives: the mesh being sick does not strand
+            # the query
+            db = self.db
+            plan = P.fuse(compile_plan(expr, shape.choices), sigma=self.sigma)
+            ex = E.cached_executable(plan, db, sigma=self.sigma)
+        else:  # streamed, streamed-shrunk
             db, fusion, streamed = self._degraded_storage()
             plan = P.fuse(compile_plan(expr, shape.choices), sigma=self.sigma, streamed=streamed, fusion=fusion)
             ex = E.cached_executable(plan, db, sigma=self.sigma)
-        else:  # the sharded rungs come with sharding
-            raise ValueError(f"unknown ladder mode {mode!r}")
         shape.mode_ex[mode] = (ex, db)
         return ex, db
 
@@ -245,9 +299,12 @@ class Session:
 
     def _validate_degraded(self, shape: Shape, key: tuple, items, mode: str = "") -> None:
         """Hold a degraded result against the primary rung's result for the
-        same binding, when one is kept, by :func:`degraded_equal`."""
+        same binding, when one is kept, by :func:`degraded_equal`.  The
+        ``single-shard`` rung crosses executors (the sharded primary folds
+        floats across shards in another order), so it is held at the
+        cross-executor tolerance on every device."""
         ref = self._ref_results.get(key)
-        if ref is None or degraded_equal(items, ref, self.device):
+        if ref is None or degraded_equal(items, ref, self.device, across_executors=mode == "single-shard"):
             return
         raise errors.ReproError(
             f"degraded execution of {shape.query.name!r} at {mode!r} diverged from its "
@@ -352,11 +409,15 @@ class Session:
                 config=self.adapt_config,
                 fingerprint=compile_plan(expr, {}).fingerprint(),
                 device=self.device,
+                net=self.net,
+                sharded_rels=self.shard_rels or None,
             )
             choices = planner.choose(query.bind_defaults({}))
             synth_runs = len(planner.races)  # one enumeration a race round
         else:
-            choices = dict(synthesize(expr, self.sigma, self.delta).choices)
+            choices = dict(synthesize(
+                expr, self.sigma, self.delta, net=self.net, sharded_rels=self.shard_rels or None,
+            ).choices)
         plan, ex = self._build(expr, choices)
         shape = Shape(query, dict(choices), plan, ex, planner=planner, compile_s=time.perf_counter() - t0,
                       synth_runs=synth_runs)
@@ -401,6 +462,7 @@ class Session:
             "served": shape.served,
             "device": str(self.device),
             "streamed": self.streamed,
+            "shards": self.shards,
         }
         if shape.planner is not None:
             out["races"] = [
@@ -443,6 +505,7 @@ def connect(
     device=None,
     memory_budget: Optional[int] = None,
     chunk_rows: int = S.CHUNK_ROWS,
+    shards: int = 0,
     adapt: Union[bool, AdaptConfig] = False,
     delta=None,
     queries: Optional[Dict[str, Query]] = None,
@@ -452,11 +515,13 @@ def connect(
     ``device`` — ``"cuda"`` unless another is named; raises when no CUDA
     device exists and none was named.  ``memory_budget`` (bytes of decoded
     columns the device may hold) streams what does not fit, in chunks of
-    ``chunk_rows`` rows; ``adapt`` — ``True`` or an :class:`AdaptConfig` —
+    ``chunk_rows`` rows; ``shards`` runs the fact tables row-sharded over
+    that many shards (choices synthesized under Δ_net); ``adapt`` — ``True``
+    or an :class:`AdaptConfig` —
     races near-cost plans on warm-up traffic, validates them by the
     device's rule and serves the measured winner; ``clock`` drives the
     circuit breakers' cooldowns."""
     return Session(
-        db, device=device, memory_budget=memory_budget, chunk_rows=chunk_rows, adapt=adapt, delta=delta,
-        queries=queries, clock=clock,
+        db, device=device, memory_budget=memory_budget, chunk_rows=chunk_rows, shards=shards, adapt=adapt,
+        delta=delta, queries=queries, clock=clock,
     )

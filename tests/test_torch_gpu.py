@@ -32,7 +32,9 @@ chip, sampled at S = 2, 4 and 32; odd C, a live count no multiple of S,
 fewer keys than a stride, runs of equal keys), both with unaligned inputs,
 bit for bit.  An adaptive session races q1 and q3 at TPC-H SF 0.01, every
 lane valid by the card's rule, and records whether two runs of one Γ are
-bitwise equal.
+bitwise equal.  A 2-shard session runs q3 and q18 at TPC-H SF 0.01 on the
+card against the resident session and numpy, every launch of its warm run
+held against its twin.
 """
 import contextlib
 import dataclasses
@@ -1361,3 +1363,40 @@ def test_race_validates_by_the_card_rule(cuda, ladder_db, record_property, qname
     assert A.degraded_equal(a, b, cuda)
     record_property("bitwise_equal_runs", A.bitwise_equal(a, b))
     print(f"{qname}: two runs of the model's Γ bitwise equal: {A.bitwise_equal(a, b)}")
+
+
+# -- sharded execution on the card --------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def shard_db(cuda):
+    db = tpch.generate(scale=0.01, seed=7, device=cuda).tables()
+    return db, {q: REGISTRY[q].reference(db, **REGISTRY[q].defaults) for q in ("q3", "q18")}
+
+
+@pytest.mark.parametrize("qname", ["q3", "q18"])
+def test_sharded_session_on_card(cuda, shard_db, qname):
+    """``connect(db, shards=2)`` on the card: the result against the
+    resident session's and numpy's, and every launch of the warm run (the
+    shards' fused regions and builds, the shuffles' rebuilds, the probes)
+    against its twin."""
+    db, refs = shard_db
+    want = repro_torch.connect(db, device=cuda).query(qname)
+    s = repro_torch.connect(db, device=cuda, shards=2)
+    assert all(d.type == "cuda" for d in s.mesh.devices)
+    s.query(qname)  # cold: the regions build
+    with recording(fp, "fused_pipeline") as fcalls, recording(hb, "hash_build") as bcalls, \
+            recording(hp, "hash_probe") as pcalls, recording(sl, "sorted_lookup") as scalls:
+        got = s.query(qname)
+    rep = s.report()
+    assert rep.shards == 2 and rep.degraded == 0 and rep.faults == 0
+    _same_items(got, want)
+    _same_items(got, refs[qname])
+    assert len(fcalls) >= 2 and len(bcalls) >= 2, (len(fcalls), len(bcalls))
+    _fused_calls_match_plain(fcalls)
+    for args, _, out in bcalls:
+        _same_tables(out, hb.hash_build_plain(*args))
+    for calls, twin in ((pcalls, hp.hash_probe_plain), (scalls, sl.sorted_lookup_plain)):
+        for args, _, out in calls:
+            vals, found = twin(*args)
+            assert torch.equal(out[1], found) and torch.equal(out[0], vals)

@@ -202,6 +202,8 @@ def test_streamed_rung_passes_no_dispatch_point(pkgs):
 
 
 def test_sharded_rungs_are_not_ported(pkgs):
+    """A session's ladder holds its own regime's rungs only: a resident
+    session refuses the sharded rungs, a sharded session the resident ones."""
     _, port = pkgs
     s = port.connect()
     shape = s.shape("q1")
@@ -210,6 +212,10 @@ def test_sharded_rungs_are_not_ported(pkgs):
             s._mode_executable(shape, mode)
     assert s._ladder_modes() == ("fused", "materialized", "streamed")
     assert port.connect(memory_budget=1, chunk_rows=1024)._ladder_modes() == ("streamed", "streamed-shrunk")
+    sharded = port.connect(shards=2)
+    assert sharded._ladder_modes() == ("fused-sharded", "materialized-sharded", "single-shard")
+    with pytest.raises(ValueError, match="unknown ladder mode"):
+        sharded._mode_executable(sharded.shape("q1"), "materialized")
 
 
 def test_degraded_equal_by_device():
