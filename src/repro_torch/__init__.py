@@ -24,11 +24,20 @@ a card (all on one card where there is one)::
 
     session = repro_torch.connect(db, shards=4)
 
+LM training (dense decoders) runs through ``repro_torch.train``::
+
+    from repro_torch.data.lm_data import StreamConfig
+    from repro_torch.models.registry import get_model_by_name
+    model = get_model_by_name("llama3.2-3b")
+    trainer = repro_torch.train.Trainer(model, repro_torch.train.TrainConfig(steps=100),
+                                        StreamConfig(model.cfg.vocab, global_batch=8, seq_len=256))
+    trainer.run()
+
 Entry points run on the card unless the caller names another device
 (``device="cpu"``): the CPU path runs every kernel's plain PyTorch twin.
 """
 
-__all__ = ["connect", "Session", "AdaptConfig", "costmodel"]
+__all__ = ["connect", "Session", "AdaptConfig", "costmodel", "train"]
 
 
 def __getattr__(name):
@@ -41,8 +50,8 @@ def __getattr__(name):
         from repro_torch.core.adapt import AdaptConfig
 
         return AdaptConfig
-    if name == "costmodel":
+    if name in ("costmodel", "train"):
         import importlib
 
-        return importlib.import_module("repro_torch.costmodel")
+        return importlib.import_module(f"repro_torch.{name}")
     raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

@@ -20,6 +20,20 @@ query and key tile):
 The plain twin, :func:`flash_attention_plain`, runs the same tiles and the
 same sentinels in PyTorch; the wrapper takes it only for CPU tensors.
 
+Training differentiates through :class:`FlashAttentionFn`.  Its forward is
+:func:`flash_attention` (the kernel's launch on CUDA tensors, counted; the
+twin on CPU tensors).  Its backward is the reference's own gradient route,
+not a fallback: the reference's Pallas kernel has no backward (``jax.grad``
+through it fails in ``_pallas_call_jvp_rule``), so the reference trains
+through its plain route, ``repro/kernels/ops.py:92-104``.  The backward
+recomputes that route (:func:`ref.attention_route`) on detached copies of
+``q``, ``k``, ``v`` in their dtype and returns its gradient against ``dO``;
+``dk`` and ``dv`` come back at ``Hkv`` heads, summed over each group.  A
+query row that sees no key has the gradient that route gives it (zero, as
+the reference's), never a NaN where the reference's is finite.  Under remat
+a checkpointed layer calls the forward again during the backward: a second
+launch.
+
 Semantics kept from the reference:
 
 * query row ``r`` sits at key position ``r + (Tk - Tq)``: causal masks
@@ -38,6 +52,7 @@ import math
 import torch
 
 from . import build
+from . import ref
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 64, 128)
@@ -188,3 +203,28 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.T
 # the module attribute with a wrapper of its own
 flash_attention.launches = 0
 _FA = flash_attention
+
+
+#: the profiler range of :class:`FlashAttentionFn`'s backward
+BACKWARD_RANGE = "flash_attention_backward"
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with a gradient (see the module docstring):
+    ``FlashAttentionFn.apply(q, k, v, causal, window)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_out):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        # a profiler range, so that a trace can tell this route's device time
+        with torch.enable_grad(), torch.profiler.record_function(BACKWARD_RANGE):
+            out = ref.attention_route(q, k, v, causal=ctx.causal, window=ctx.window)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), d_out)
+        return dq, dk, dv, None, None

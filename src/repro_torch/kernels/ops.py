@@ -85,17 +85,14 @@ def decode(code, payload, out_rows) -> torch.Tensor:
 def flash_attention(q, k, v, *, causal=True, window=0, kv_valid=None) -> torch.Tensor:
     """Attention of ``q [B, H, Tq, D]`` over ``k``, ``v [B, Hkv, Tk, D]``.
     Without ``kv_valid``: the kernel on CUDA tensors, its twin on CPU
-    tensors.  A ``kv_valid`` mask (the serve path's count of live cache
-    slots) takes the plain definitions, as in the reference, whose kernel has
-    no such mask: the chunked online softmax above 2,048 key slots (K/V stay
-    at ``Hkv`` heads), else the dense softmax over K/V repeated to ``H``
-    heads."""
+    tensors; where grad mode is on and an input requires grad (training),
+    through :class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`,
+    whose backward is the reference's plain route.  A ``kv_valid`` mask (the
+    serve path's count of live cache slots) takes that plain route
+    (:func:`ref.attention_route`), as in the reference, whose kernel has no
+    such mask."""
     if kv_valid is None:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return _fa.FlashAttentionFn.apply(q, k, v, causal, window)
         return _fa.flash_attention(q, k, v, causal=causal, window=window)
-    if k.shape[2] > 2048:
-        return ref.flash_attention_chunked(q, k, v, causal=causal, window=window, kv_valid=kv_valid)
-    g = q.shape[1] // k.shape[1]
-    if g > 1:
-        k = k.repeat_interleave(g, dim=1)
-        v = v.repeat_interleave(g, dim=1)
-    return ref.flash_attention(q, k, v, causal=causal, window=window, kv_valid=kv_valid)
+    return ref.attention_route(q, k, v, causal=causal, window=window, kv_valid=kv_valid)

@@ -108,3 +108,17 @@ def flash_attention_chunked(q, k, v, causal: bool = True, window: int = 0, chunk
         m = m_new
     denom = torch.where(l == 0.0, 1.0, l)
     return (acc / denom[..., None]).reshape(B, H, Tq, D).to(q.dtype)
+
+
+def attention_route(q, k, v, causal: bool = True, window: int = 0, kv_valid=None) -> torch.Tensor:
+    """The reference's plain attention route (``repro/kernels/ops.py:92-104``)
+    for ``q [B, H, Tq, D]`` over ``k``, ``v [B, Hkv, Tk, D]``: the chunked
+    online softmax above 2,048 key slots (K/V stay at ``Hkv`` heads), else
+    the dense softmax over K/V repeated to ``H`` heads."""
+    if k.shape[2] > 2048:
+        return flash_attention_chunked(q, k, v, causal=causal, window=window, kv_valid=kv_valid)
+    g = q.shape[1] // k.shape[1]
+    if g > 1:
+        k = k.repeat_interleave(g, dim=1)
+        v = v.repeat_interleave(g, dim=1)
+    return flash_attention(q, k, v, causal=causal, window=window, kv_valid=kv_valid)

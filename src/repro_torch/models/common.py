@@ -1,5 +1,5 @@
-"""Shared model components: norms, rotary embeddings, attention, MLPs (the
-twin of the parts of ``repro.models.common`` that the decoder uses).
+"""Shared model components: norms, rotary embeddings, attention, MLPs, the
+loss (the twin of the parts of ``repro.models.common`` that the decoder uses).
 
 Parameters are plain nested dicts of tensors, as in the reference.  A
 projection weight is stored in ``nn.Linear``'s ``[d_out, d_in]`` layout and
@@ -22,18 +22,38 @@ from repro_torch.kernels import ops as kops
 Params = Dict[str, Any]
 
 
+def tree_items(tree, prefix: str = ""):
+    """``(path, leaf)`` pairs of a parameter tree in a fixed order, paths
+    joined by ``/`` (a list's entries by their index: ``layers/0/attn/wq``)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_items(v, f"{prefix}{k}/")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from tree_items(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def tree_leaves(tree):
+    return [leaf for _, leaf in tree_items(tree)]
+
+
+def tree_map(fn, tree):
+    """A tree of the same structure with ``fn`` applied to every leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
 def cast_tree(tree, dtype: torch.dtype):
     """Cast every floating tensor of a parameter tree to ``dtype`` at its use
     site.  The reference casts its float32 leaves and lets JAX promote a
     narrower leaf against a float32 activation; widening a bfloat16 leaf is
     exact, so the products agree."""
-    if isinstance(tree, dict):
-        return {k: cast_tree(v, dtype) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [cast_tree(v, dtype) for v in tree]
-    if torch.is_tensor(tree) and tree.is_floating_point():
-        return tree.to(dtype)
-    return tree
+    return tree_map(lambda t: t.to(dtype) if torch.is_tensor(t) and t.is_floating_point() else t, tree)
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int, device, scale: Optional[float] = None) -> torch.Tensor:
@@ -168,7 +188,7 @@ def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# embedding / head
+# embedding / head / loss
 # ---------------------------------------------------------------------------
 
 
@@ -182,3 +202,15 @@ def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, p["table"])
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` in float32: ``logsumexp``
+    minus the gold logit, averaged over the positions where ``mask`` is set
+    (all of them without one)."""
+    logits = logits.float()
+    nll = torch.logsumexp(logits, dim=-1) - torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -5,6 +5,8 @@ pytree as numpy arrays (layers stacked on a leading ``[L, ...]`` axis,
 projections laid out ``[d_in, d_out]`` for ``x @ W``) and returns the port's
 parameters: a list of layers, projections transposed to ``nn.Linear``'s
 ``[d_out, d_in]``.  Both packages then compute the same function.
+``opt_state_from_reference(cfg, state)`` maps ``repro.train.optimizer``'s
+state the same way, so that both optimizers can start from one state.
 """
 from __future__ import annotations
 
@@ -51,4 +53,14 @@ def params_from_reference(cfg: ArchConfig, tree, device=None) -> Params:
     }
     if "head" in tree:
         out["head"] = {"w": _tensor(tree["head"]["w"], dev, transpose=True)}
+    return out
+
+
+def opt_state_from_reference(cfg: ArchConfig, state, device=None) -> Params:
+    """The reference's AdamW state (numpy leaves): ``m``, ``v`` and, with
+    compression, ``ef`` through :func:`params_from_reference` (each keeps
+    its dtype), ``step`` as a 0-d int32 tensor."""
+    dev = resolve_device(device)
+    out = {k: params_from_reference(cfg, state[k], dev) for k in ("m", "v", "ef") if k in state}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32, device=dev)
     return out

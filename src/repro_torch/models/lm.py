@@ -1,22 +1,29 @@
 """Decoder-only LM, dense GQA (granite / qwen / llama) — the twin of
 ``repro.models.lm`` for its dense architectures.
 
-The reference scans a stacked layer body under remat; the port runs eagerly
-with no gradient, so the layers are a list walked by a plain loop, and
-the reference's sharding hints (``shard_hint``, ``current_mesh``), which are
-no-ops on one device, are left out.
+The reference scans a stacked layer body under remat; the port runs
+eagerly, so the layers are a list walked by a plain loop, and where a
+gradient is recorded each period of ``cfg.remat_period`` layers is one
+``torch.utils.checkpoint`` (the reference's ``nothing_saveable`` policy:
+only the period's input is kept, the rest is recomputed in the backward).
+The reference's sharding hints (``shard_hint``, ``current_mesh``), which
+are no-ops on one device, are left out.  ``forward`` records a graph only
+under grad mode with parameters that require grad: the serving callers run
+it under ``torch.no_grad()``.
 
 Entry points:
     init(cfg, generator, device)                -> params
-    forward(cfg, params, tokens, window)        -> (logits, aux)   (prefill)
+    forward(cfg, params, tokens, window, remat) -> (logits, aux)   (train / prefill)
+    loss_fn(cfg, params, batch)                 -> scalar
     init_cache(cfg, batch, cache_len, fill_len) -> decode cache
     decode_step(cfg, params, cache, tok)        -> (logits, cache)
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.data.table import resolve_device
 
@@ -99,17 +106,50 @@ def _layer_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.T
     return x + common.swiglu(p["mlp"], common.rmsnorm(p["mlp_norm"], x))
 
 
-@torch.no_grad()
-def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, window: int = 0,
+            remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits [B, T, padded_vocab], aux[3]); ``aux`` is the
-    reference's MoE loss terms, zeros for a dense model."""
+    reference's MoE loss terms, zeros for a dense model.  Each layer's
+    parameters are cast to the activation dtype inside its period, as the
+    reference casts inside its remat body."""
     adt = act_dtype(cfg)
     x = common.embed(params["embed"], tokens).to(adt)
     T = x.shape[1]
     positions = torch.arange(T, device=x.device)
-    for lp in params["layers"]:
-        x = _layer_apply(cfg, common.cast_tree(lp, adt), x, positions, window)
+    period = max(1, cfg.remat_period)
+    if cfg.n_layers % period:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not a multiple of remat_period {period}")
+
+    def period_body(lps, y):
+        for lp in lps:
+            y = _layer_apply(cfg, common.cast_tree(lp, adt), y, positions, window)
+        return y
+
+    checkpointed = remat and torch.is_grad_enabled() and any(
+        t.requires_grad for t in common.tree_leaves(params["layers"]))
+    for i in range(0, cfg.n_layers, period):
+        lps = params["layers"][i:i + period]
+        if checkpointed:
+            # the forward draws no random numbers: no RNG state to keep
+            x = torch.utils.checkpoint.checkpoint(period_body, lps, x, use_reentrant=False,
+                                                  preserve_rng_state=False)
+        else:
+            x = period_body(lps, x)
     return _logits(params, x, adt), torch.zeros((3,), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean next-token cross entropy of ``batch["labels"]`` (where
+    ``batch["loss_mask"]``, if given), in float32; the padded vocabulary's
+    tail is masked out.  A dense model has no MoE aux term; a batch with
+    ``patches`` (pixtral) raises."""
+    if batch.get("patches") is not None:
+        raise NotImplementedError(f"{cfg.name}: patch embeddings (pixtral) are not ported to repro_torch (ROADMAP.md)")
+    logits, _ = forward(cfg, params, batch["tokens"])
+    if cfg.padded_vocab != cfg.vocab:
+        live = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
+        logits = torch.where(live, logits, -1e30)
+    return common.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
 
 
 # ---------------------------------------------------------------------------

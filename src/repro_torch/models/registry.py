@@ -4,7 +4,9 @@ the model kinds, of which the port has the dense decoder.
 ``get_model(cfg, device)`` returns a ``Model`` with:
 
     init(generator)                 -> params
-    forward(params, tokens)         -> (logits, aux)  (prefill shapes)
+    init_shapes()                   -> params on the ``meta`` device (shapes, no data)
+    forward(params, tokens)         -> (logits, aux)  (train / prefill shapes)
+    loss_fn(params, batch)          -> scalar          (train shapes)
     init_cache(batch, cache_len)    -> cache           (a full cache, as the reference)
     decode_step(params, cache, tok) -> (logits, cache) (decode shapes)
     make_batch(shape, generator)    -> real tensors
@@ -35,8 +37,16 @@ class Model:
     def init(self, generator: torch.Generator):
         return self.mod.init(self.cfg, generator, self.device)
 
-    def forward(self, params, tokens, window: int = 0):
-        return self.mod.forward(self.cfg, params, tokens, window=window)
+    def init_shapes(self):
+        """The parameter tree as ``meta`` tensors: its shapes and dtypes
+        without drawing the weights (a restore's ``like``)."""
+        return self.mod.init(self.cfg, torch.Generator(), "meta")
+
+    def forward(self, params, tokens, window: int = 0, remat: bool = True):
+        return self.mod.forward(self.cfg, params, tokens, window=window, remat=remat)
+
+    def loss_fn(self, params, batch):
+        return self.mod.loss_fn(self.cfg, params, batch)
 
     def init_cache(self, batch: int, cache_len: int):
         return self.mod.init_cache(self.cfg, batch, cache_len, device=self.device)

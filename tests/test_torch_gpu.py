@@ -21,7 +21,11 @@ at the shapes ``chip_smoke.py`` gives it (MHA, GQA, MQA, a window, unaligned
 lengths, Tq < Tk, Tq > Tk, non-causal, strided head splits; the wgmma
 kernel at D = 64 and 128 over lengths on both sides of its 128-row tiles,
 windows of 40 and 200, strided heads bit for bit), and a reduced
-llama forward on the card launches it once per layer.  The dictionary
+llama forward on the card launches it once per layer.  Its gradient
+(``FlashAttentionFn``: the kernel forward, the reference's plain route
+backward) is held against the plain route in float32, and a reduced llama
+trains on the card with two launches a layer a step (forward and remat
+recompute), its losses following the CPU's.  The dictionary
 kernels (hash probe, sorted lookup, hash build) run against their twins at
 small and TPC-H SF 0.01 shapes, through the families' routes too, and the
 installation sweep's smallest cell launches all three.  The merge lookup
@@ -64,6 +68,7 @@ from repro_torch.kernels import fused_pipeline as fp
 from repro_torch.kernels import hash_build as hb
 from repro_torch.kernels import hash_probe as hp
 from repro_torch.kernels import merge_lookup as ml
+from repro_torch.kernels import ref
 from repro_torch.kernels import sorted_lookup as sl
 from repro_torch.kernels import segment_reduce as sr
 from repro_torch.models import lm
@@ -698,6 +703,63 @@ def test_forward_on_card_launches_the_kernel_once_per_layer(cuda, act_dtype, mon
     assert fa.flash_attention.launches == cfg.n_layers
     tol = 1e-4 if act_dtype == "float32" else 5e-2  # bf16: the CPU and the card round differently
     torch.testing.assert_close(got.float().cpu(), want.float(), rtol=tol, atol=tol)
+
+
+# (B, H, Hkv, T, D, window): GQA, MQA and a window on the dense route, and
+# above 2,048 keys on the chunked one
+GRAD_CASES = [(2, 4, 2, 100, 16, 0), (1, 4, 1, 129, 64, 0), (1, 2, 2, 200, 128, 40), (1, 4, 2, 2100, 64, 0)]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_attention_gradient_on_card(cuda, case, dtype, monkeypatch):
+    """The forward launches the kernel once; dq, dk, dv are the plain route's
+    (``ref.attention_route``) on the same inputs, and within rounding of it
+    in float32."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    B, H, Hkv, T, D, window = case
+    g = torch.Generator(device=cuda).manual_seed(T)
+    q, k, v = (torch.randn((B, h, T, D), generator=g, device=cuda).to(getattr(torch, dtype)).requires_grad_()
+               for h in (H, Hkv, Hkv))
+    d_out = torch.randn((B, H, T, D), generator=g, device=cuda).to(q.dtype)
+    n = fa.flash_attention.launches
+    out = fa.FlashAttentionFn.apply(q, k, v, True, window)
+    assert fa.flash_attention.launches == n + 1
+    got = torch.autograd.grad(out, (q, k, v), d_out)
+    assert fa.flash_attention.launches == n + 1
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(ref.attention_route(qf, kf, vf, causal=True, window=window), (qf, kf, vf),
+                               d_out.float())
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == q.dtype and a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        cos = float(torch.nn.functional.cosine_similarity(a.float().flatten(), b.flatten(), dim=0))
+        assert cos >= (0.999 if dtype == "bfloat16" else 1 - 1e-6), (name, cos)
+
+
+def test_training_step_on_card_launches_twice_a_layer(cuda, tmp_path, monkeypatch):
+    """A reduced llama trains on the card from the CPU's initial weights and
+    stream: each step launches the kernel in the forward and again in each
+    layer's remat recompute, and the losses follow the CPU's."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    from repro_torch.data.lm_data import StreamConfig
+    from repro_torch.models.common import tree_map
+    from repro_torch.train.optimizer import OptConfig, init_state
+    from repro_torch.train.train_loop import TrainConfig, Trainer
+
+    init = get_model_by_name("llama3.2-3b", reduced=True, device="cpu").init(torch.Generator().manual_seed(0))
+    losses, launches = {}, {}
+    for dev in ("cpu", "cuda"):
+        m = get_model_by_name("llama3.2-3b", reduced=True, device=dev)
+        t = Trainer(m, TrainConfig(steps=3, ckpt_dir=str(tmp_path / dev), ckpt_async=False, log_every=1000,
+                                   opt=OptConfig(lr=1e-3, warmup_steps=1, total_steps=3)),
+                    StreamConfig(vocab=m.cfg.vocab, global_batch=2, seq_len=40))
+        t.params = tree_map(lambda p: p.to(dev, copy=True).requires_grad_(), init)
+        t.opt_state = init_state(t.params, t.tcfg.opt)
+        fa.flash_attention.launches = 0
+        losses[dev] = [x["loss"] for x in t.run()]
+        launches[dev] = fa.flash_attention.launches
+    assert launches == {"cpu": 0, "cuda": 3 * 2 * m.cfg.n_layers}
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
 
 
 def _dict_case(shape, rng):
