@@ -1,9 +1,9 @@
 """Per-architecture configs (the twin of ``repro.configs``).
 
 Each ported module exports ``CONFIG: ArchConfig``; ``get(name)`` resolves
-ids with dashes/dots normalized.  Only the dense decoders are ported; an
-architecture of another family raises ``NotImplementedError`` until its
-slice lands (``ROADMAP.md``).
+ids with dashes/dots normalized.  The dense decoders and the MoE family
+(llama4) are ported; an architecture of another family raises
+``NotImplementedError`` until its slice lands (``ROADMAP.md``).
 """
 from importlib import import_module
 
@@ -25,8 +25,6 @@ ARCH_IDS = tuple(_ALIASES)
 # the families whose models are not ported yet, by module
 _NOT_PORTED = {
     "whisper_large_v3": "audio",
-    "llama4_scout_17b_a16e": "moe",
-    "llama4_maverick_400b_a17b": "moe",
     "pixtral_12b": "vlm",
     "rwkv6_3b": "ssm",
     "jamba_1_5_large_398b": "hybrid",

@@ -41,7 +41,8 @@ def main(argv=None) -> None:
         params = tree["params"]
         print(f"[serve] restored step {meta['step']} from {args.ckpt_dir}")
     else:
-        params = model.init(torch.Generator(device=model.device).manual_seed(0))
+        # bf16 as drawn, leaf by leaf: the float32 draw is never held whole
+        params = model.init(torch.Generator(device=model.device).manual_seed(0), dtype=torch.bfloat16)
         print("[serve] no checkpoint — random weights (demo mode)")
     # serving runs bf16 weights, as the reference does
     params = common.cast_tree(params, torch.bfloat16)

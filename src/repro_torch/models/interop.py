@@ -4,7 +4,12 @@
 pytree as numpy arrays (layers stacked on a leading ``[L, ...]`` axis,
 projections laid out ``[d_in, d_out]`` for ``x @ W``) and returns the port's
 parameters: a list of layers, projections transposed to ``nn.Linear``'s
-``[d_out, d_in]``.  Both packages then compute the same function.
+``[d_out, d_in]``.  A MoE layer's router is transposed to ``[E, d]`` and
+its shared expert as ``mlp`` is; its expert stacks keep the reference's
+``[E, d, f]`` / ``[E, f, d]`` layout (``models.moe`` applies them as
+batched ``x @ W``), so they are copied unchanged, and the same layout
+serves their gradients and optimizer moments.  Both packages then compute
+the same function.
 ``opt_state_from_reference(cfg, state)`` maps ``repro.train.optimizer``'s
 state the same way, so that both optimizers can start from one state.
 """
@@ -20,6 +25,7 @@ from .config import ArchConfig
 
 _PROJECTIONS = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("wi", "wg", "wo")}
 _BIASES = ("bq", "bk", "bv")
+_EXPERT_STACKS = ("wi", "wg", "wo")
 
 
 def _tensor(a, device, transpose: bool = False) -> torch.Tensor:
@@ -41,10 +47,18 @@ def params_from_reference(cfg: ArchConfig, tree, device=None) -> Params:
             "mlp_norm": {"scale": _tensor(lt["mlp_norm"]["scale"][i], dev)},
         }
         for block, names in _PROJECTIONS.items():
-            layer[block] = {n: _tensor(lt[block][n][i], dev, transpose=True) for n in names}
+            if block in lt:
+                layer[block] = {n: _tensor(lt[block][n][i], dev, transpose=True) for n in names}
         for n in _BIASES:
             if n in lt["attn"]:
                 layer["attn"][n] = _tensor(lt["attn"][n][i], dev)
+        if "moe" in lt:
+            moe = lt["moe"]
+            layer["moe"] = {"router": _tensor(moe["router"][i], dev, transpose=True),
+                            **{n: _tensor(moe[n][i], dev) for n in _EXPERT_STACKS}}
+            if "shared" in moe:
+                layer["moe"]["shared"] = {n: _tensor(moe["shared"][n][i], dev, transpose=True)
+                                          for n in _PROJECTIONS["mlp"]}
         layers.append(layer)
     out = {
         "embed": {"table": _tensor(tree["embed"]["table"], dev)},

@@ -1,5 +1,5 @@
-"""Decoder-only LM, dense GQA (granite / qwen / llama) — the twin of
-``repro.models.lm`` for its dense architectures.
+"""Decoder-only LM, dense GQA (granite / qwen / llama) and uniform MoE
+(llama4 scout / maverick) — the twin of ``repro.models.lm``.
 
 The reference scans a stacked layer body under remat; the port runs
 eagerly, so the layers are a list walked by a plain loop, and where a
@@ -12,7 +12,7 @@ under grad mode with parameters that require grad: the serving callers run
 it under ``torch.no_grad()``.
 
 Entry points:
-    init(cfg, generator, device)                -> params
+    init(cfg, generator, device, dtype)         -> params
     forward(cfg, params, tokens, window, remat) -> (logits, aux)   (train / prefill)
     loss_fn(cfg, params, batch)                 -> scalar
     init_cache(cfg, batch, cache_len, fill_len) -> decode cache
@@ -28,6 +28,7 @@ import torch.utils.checkpoint
 from repro_torch.data.table import resolve_device
 
 from . import common
+from . import moe as moe_mod
 from .common import Params
 from .config import ArchConfig
 
@@ -38,10 +39,10 @@ def act_dtype(cfg: ArchConfig) -> torch.dtype:
     return _DTYPES[cfg.act_dtype]
 
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.model_kind != "decoder" or cfg.moe_experts > 0:
+def _decoder_only(cfg: ArchConfig) -> None:
+    if cfg.model_kind != "decoder":
         raise NotImplementedError(
-            f"{cfg.name}: only dense decoders are ported to repro_torch (MoE and the other kinds: ROADMAP.md)"
+            f"{cfg.name}: only decoders (dense and MoE) are ported to repro_torch (the other kinds: ROADMAP.md)"
         )
 
 
@@ -50,31 +51,39 @@ def _dense_only(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _layer_init(cfg: ArchConfig, generator, device) -> Params:
-    return {
+def _layer_init(cfg: ArchConfig, generator, device, dtype: torch.dtype) -> Params:
+    p = common.cast_tree({
         "attn_norm": common.rmsnorm_init(cfg.d_model, device),
         "mlp_norm": common.rmsnorm_init(cfg.d_model, device),
         "attn": common.attention_init(
             generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, device, cfg.qkv_bias
         ),
-        "mlp": common.swiglu_init(generator, cfg.d_model, cfg.d_ff, device),
-    }
+    }, dtype)
+    if cfg.moe_experts > 0 and cfg.moe_every == 1:  # the reference's uniform MoE (llama4)
+        p["moe"] = moe_mod.moe_init(generator, cfg.d_model, cfg.d_ff, cfg.moe_experts, cfg.moe_shared_expert,
+                                    device, dtype)
+    else:
+        p["mlp"] = common.cast_tree(common.swiglu_init(generator, cfg.d_model, cfg.d_ff, device), dtype)
+    return p
 
 
-def init(cfg: ArchConfig, generator: torch.Generator, device=None) -> Params:
-    """Float32 parameters drawn from ``generator`` (which lies on ``device``):
-    the reference's distributions (projections normal · 1/sqrt(d_in), the
-    embedding normal · 0.02, norms ones, biases zeros).  ``device`` is the
-    card unless the caller names another."""
-    _dense_only(cfg)
+def init(cfg: ArchConfig, generator: torch.Generator, device=None, dtype: torch.dtype = torch.float32) -> Params:
+    """Parameters drawn from ``generator`` (which lies on ``device``): the
+    reference's distributions (projections normal · 1/sqrt(d_in), the
+    embedding normal · 0.02, norms ones, biases zeros; MoE layers as
+    ``moe.moe_init``), drawn in float32 and cast to ``dtype`` as they are
+    drawn (a layer's dense leaves together, the expert stacks one by one),
+    so that a bfloat16 model never holds its float32 draw whole.
+    ``device`` is the card unless the caller names another."""
+    _decoder_only(cfg)
     device = resolve_device(device)
     p = {
-        "embed": common.embed_init(generator, cfg.padded_vocab, cfg.d_model, device),
-        "layers": [_layer_init(cfg, generator, device) for _ in range(cfg.n_layers)],
-        "final_norm": common.rmsnorm_init(cfg.d_model, device),
+        "embed": common.cast_tree(common.embed_init(generator, cfg.padded_vocab, cfg.d_model, device), dtype),
+        "layers": [_layer_init(cfg, generator, device, dtype) for _ in range(cfg.n_layers)],
+        "final_norm": common.cast_tree(common.rmsnorm_init(cfg.d_model, device), dtype),
     }
     if not cfg.tie_embeddings:
-        p["head"] = {"w": common.dense_init(generator, cfg.d_model, cfg.padded_vocab, device)}
+        p["head"] = {"w": common.dense_init(generator, cfg.d_model, cfg.padded_vocab, device).to(dtype)}
     return p
 
 
@@ -90,7 +99,17 @@ def _logits(params: Params, x: torch.Tensor, adt: torch.dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _layer_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.Tensor, window: int) -> torch.Tensor:
+def _ffn(cfg: ArchConfig, p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """The layer's FFN on the normed residual: (out, the MoE aux dict or
+    ``None`` for a dense layer)."""
+    y = common.rmsnorm(p["mlp_norm"], x)
+    if "moe" in p:
+        return moe_mod.moe_dispatch_auto(p["moe"], y, cfg)
+    return common.swiglu(p["mlp"], y), None
+
+
+def _layer_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.Tensor,
+                 window: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     h, _ = common.attention(
         p["attn"],
         common.rmsnorm(p["attn_norm"], x),
@@ -103,15 +122,20 @@ def _layer_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.T
         rope_theta=cfg.rope_theta,
     )
     x = x + h
-    return x + common.swiglu(p["mlp"], common.rmsnorm(p["mlp_norm"], x))
+    m, auxd = _ffn(cfg, p, x)
+    if auxd is None:
+        return x + m, None
+    return x + m, torch.stack([auxd[k].float() for k in ("load_balance", "router_z", "drop_fraction")])
 
 
 def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, window: int = 0,
             remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits [B, T, padded_vocab], aux[3]); ``aux`` is the
-    reference's MoE loss terms, zeros for a dense model.  Each layer's
-    parameters are cast to the activation dtype inside its period, as the
-    reference casts inside its remat body."""
+    reference's MoE terms (load balance, router z, drop fraction) summed
+    over the layers, zeros for a dense model.  Each layer's parameters are
+    cast to the activation dtype inside its period, as the reference casts
+    inside its remat body; a checkpointed period returns its aux beside its
+    output."""
     adt = act_dtype(cfg)
     x = common.embed(params["embed"], tokens).to(adt)
     T = x.shape[1]
@@ -121,35 +145,44 @@ def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, window: int =
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not a multiple of remat_period {period}")
 
     def period_body(lps, y):
+        aux = torch.zeros((3,), dtype=torch.float32, device=y.device)
         for lp in lps:
-            y = _layer_apply(cfg, common.cast_tree(lp, adt), y, positions, window)
-        return y
+            y, aux_i = _layer_apply(cfg, common.cast_tree(lp, adt), y, positions, window)
+            if aux_i is not None:
+                aux = aux + aux_i
+        return y, aux
 
     checkpointed = remat and torch.is_grad_enabled() and any(
         t.requires_grad for t in common.tree_leaves(params["layers"]))
+    aux = torch.zeros((3,), dtype=torch.float32, device=x.device)
     for i in range(0, cfg.n_layers, period):
         lps = params["layers"][i:i + period]
         if checkpointed:
             # the forward draws no random numbers: no RNG state to keep
-            x = torch.utils.checkpoint.checkpoint(period_body, lps, x, use_reentrant=False,
-                                                  preserve_rng_state=False)
+            x, aux_p = torch.utils.checkpoint.checkpoint(period_body, lps, x, use_reentrant=False,
+                                                         preserve_rng_state=False)
         else:
-            x = period_body(lps, x)
-    return _logits(params, x, adt), torch.zeros((3,), dtype=torch.float32, device=x.device)
+            x, aux_p = period_body(lps, x)
+        aux = aux + aux_p
+    return _logits(params, x, adt), aux
 
 
 def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Mean next-token cross entropy of ``batch["labels"]`` (where
     ``batch["loss_mask"]``, if given), in float32; the padded vocabulary's
-    tail is masked out.  A dense model has no MoE aux term; a batch with
-    ``patches`` (pixtral) raises."""
+    tail is masked out.  A MoE model adds ``0.01·load_balance +
+    0.001·router_z`` (summed over its layers), as the reference; a batch
+    with ``patches`` (pixtral) raises."""
     if batch.get("patches") is not None:
         raise NotImplementedError(f"{cfg.name}: patch embeddings (pixtral) are not ported to repro_torch (ROADMAP.md)")
-    logits, _ = forward(cfg, params, batch["tokens"])
+    logits, aux = forward(cfg, params, batch["tokens"])
     if cfg.padded_vocab != cfg.vocab:
         live = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
         logits = torch.where(live, logits, -1e30)
-    return common.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    loss = common.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    if cfg.moe_experts:
+        loss = loss + 0.01 * aux[0] + 0.001 * aux[1]
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +232,6 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Params, token: torch.Ten
             kv_valid=kv_valid,
         )
         x = x + h
-        x = x + common.swiglu(lp["mlp"], common.rmsnorm(lp["mlp_norm"], x))
+        x = x + _ffn(cfg, lp, x)[0]
     logits = _logits(params, x, adt)
     return logits[:, 0], {"k": cache["k"], "v": cache["v"], "len": cache["len"] + 1}

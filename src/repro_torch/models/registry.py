@@ -1,9 +1,9 @@
 """Model registry (the twin of ``repro.models.registry``): a uniform API over
-the model kinds, of which the port has the dense decoder.
+the model kinds, of which the port has the decoder (dense and MoE).
 
 ``get_model(cfg, device)`` returns a ``Model`` with:
 
-    init(generator)                 -> params
+    init(generator, dtype)          -> params (drawn in float32, cast to dtype as drawn)
     init_shapes()                   -> params on the ``meta`` device (shapes, no data)
     forward(params, tokens)         -> (logits, aux)  (train / prefill shapes)
     loss_fn(params, batch)          -> scalar          (train shapes)
@@ -34,8 +34,8 @@ class Model:
     mod: Any
     device: torch.device
 
-    def init(self, generator: torch.Generator):
-        return self.mod.init(self.cfg, generator, self.device)
+    def init(self, generator: torch.Generator, dtype: torch.dtype = torch.float32):
+        return self.mod.init(self.cfg, generator, self.device, dtype)
 
     def init_shapes(self):
         """The parameter tree as ``meta`` tensors: its shapes and dtypes
@@ -55,8 +55,9 @@ class Model:
         return self.mod.decode_step(self.cfg, params, cache, token)
 
     def supports(self, shape: ShapeSpec) -> Tuple[bool, str]:
-        # the port has only full-attention decoders; the reference's
-        # sub-quadratic answer for ssm/hybrid comes with those families
+        # the port has only full-attention decoders (dense and MoE: the
+        # reference's answer for both); its sub-quadratic answer for
+        # ssm/hybrid comes with those families
         if shape.name == "long_500k":
             return False, "pure full attention is quadratic at 500k (DESIGN.md §5)"
         return True, ""

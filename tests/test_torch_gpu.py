@@ -21,7 +21,9 @@ at the shapes ``chip_smoke.py`` gives it (MHA, GQA, MQA, a window, unaligned
 lengths, Tq < Tk, Tq > Tk, non-causal, strided head splits; the wgmma
 kernel at D = 64 and 128 over lengths on both sides of its 128-row tiles,
 windows of 40 and 200, strided heads bit for bit), and a reduced
-llama forward on the card launches it once per layer.  Its gradient
+llama forward on the card launches it once per layer, as a reduced scout
+(MoE) forward does, whose sort dispatch equals its scatter dispatch on the
+card at 8,192 and 65,536 tokens over 16 and 128 experts.  Its gradient
 (``FlashAttentionFn``: the kernel forward, the reference's plain route
 backward) is held against the plain route in float32, and a reduced llama
 trains on the card with two launches a layer a step (forward and remat
@@ -71,7 +73,7 @@ from repro_torch.kernels import merge_lookup as ml
 from repro_torch.kernels import ref
 from repro_torch.kernels import sorted_lookup as sl
 from repro_torch.kernels import segment_reduce as sr
-from repro_torch.models import lm
+from repro_torch.models import common, lm, moe
 from repro_torch.models.registry import get_model_by_name
 
 pytestmark = pytest.mark.gpu
@@ -703,6 +705,58 @@ def test_forward_on_card_launches_the_kernel_once_per_layer(cuda, act_dtype, mon
     assert fa.flash_attention.launches == cfg.n_layers
     tol = 1e-4 if act_dtype == "float32" else 5e-2  # bf16: the CPU and the card round differently
     torch.testing.assert_close(got.float().cpu(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("n", [8192, 65536])
+@pytest.mark.parametrize("e", [16, 128])
+def test_moe_dispatch_on_card(cuda, n, e):
+    """Sort dispatch equals scatter dispatch on the card exactly (and the
+    CPU's ranks), on a draw and on one expert taking every token."""
+    ids = torch.from_numpy(np.random.default_rng(n + e).integers(0, e, n))
+    for eid in (ids, torch.full((n,), e - 1)):
+        want = moe.positions_scatter(eid, e)
+        for fn in (moe.positions_scatter, moe.positions_sort):
+            assert torch.equal(fn(eid.to(cuda), e).cpu(), want)
+
+
+def test_moe_zero_router_ties_on_card(cuda):
+    """A zero router ties every expert: each token goes to expert 0 (top-1)
+    or 0 and 1 (top-2) on the card too, and both dispatches drop the same
+    tokens."""
+    g = torch.Generator().manual_seed(0)
+    p = moe.moe_init(g, 64, 128, 16, True, "cpu")
+    p["router"].zero_()
+    x = torch.randn((2, 300, 64), generator=g)
+    for top_k in (1, 2):
+        _, _, _, experts = moe.route({k: v.to(cuda) for k, v in p.items() if k == "router"},
+                                     x.view(-1, 64).to(cuda), top_k)
+        assert torch.equal(experts.cpu(), torch.arange(top_k).expand(600, top_k))
+        dev_p = {k: (v.to(cuda) if torch.is_tensor(v) else {n: t.to(cuda) for n, t in v.items()}) for k, v in p.items()}
+        want, want_aux = moe.moe_apply(p, x, n_experts=16, top_k=top_k, dispatch="scatter")
+        for dispatch in ("sort", "scatter"):
+            got, aux = moe.moe_apply(dev_p, x.to(cuda), n_experts=16, top_k=top_k, dispatch=dispatch)
+            assert float(aux["drop_fraction"]) == pytest.approx(float(want_aux["drop_fraction"]), abs=1e-7)
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_moe_forward_on_card(cuda, monkeypatch):
+    """Reduced scout (float32) through the attention kernel, one launch a
+    layer, against the CPU's forward: logits and aux.  (In bfloat16 the two
+    devices may round two experts' logits apart and route a token
+    differently.)"""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cpu = get_model_by_name("llama4-scout-17b-a16e", reduced=True, device="cpu")
+    cfg = dataclasses.replace(cpu.cfg, n_kv_heads=2)
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 100), generator=torch.Generator().manual_seed(1))
+    want, want_aux = lm.forward(cfg, params, toks)
+    dev_params = common.tree_map(lambda t: t.to(cuda), params)
+    fa.flash_attention.launches = 0
+    got, aux = lm.forward(cfg, dev_params, toks.to(cuda))
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-4, atol=1e-4)
 
 
 # (B, H, Hkv, T, D, window): GQA, MQA and a window on the dense route, and

@@ -310,10 +310,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_other_model_kinds_raise():
-    moe = ArchConfig("m", "moe", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=512, moe_experts=4)
+    # the MoE decoders are ported (tests/test_torch_moe.py); rwkv is not
+    rwkv = ArchConfig("r", "ssm", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=512,
+                      model_kind="rwkv")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tlm.init(moe, torch.Generator(), CPU)
-    encdec = dataclasses.replace(moe, moe_experts=0, model_kind="encdec")
+        tlm.init(rwkv, torch.Generator(), CPU)
+    encdec = dataclasses.replace(rwkv, model_kind="encdec")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_model(encdec, device=CPU)
 
