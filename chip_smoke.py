@@ -7,7 +7,7 @@ Phases (any failure exits non-zero):
 
 1. print the card (``nvidia-smi`` name and power limit, torch's name);
 2. build the static CUDA kernels (merge lookup, segment reduce, decode,
-   flash attention, hash probe, sorted lookup, hash build) from the
+   flash attention, hash probe, sorted lookup, hash build, selective scan) from the
    checkout's sources into ``build/kernels/``, one ``nvcc`` each, started
    together, and print each kernel's registers and spills as ``-Xptxas -v``
    reports them; each fused region compiles at its first launch;
@@ -229,9 +229,10 @@ Phases (any failure exits non-zero):
    peak memory; at the reduced config (float32, the FMA kernel at D = 16)
    two fresh 9-step runs compared bitwise and a run failing at step 6
    restarted from its checkpoint (losses at rtol 1e-6); ``python -m
-   repro_torch.launch.train --reduced --steps 3 --ckpt-dir`` and ``python -m
-   repro_torch.launch.serve --reduced --ckpt-dir``, which must restore step
-   3;
+   repro_torch.launch.train --reduced --steps 3 --ckpt-dir`` and then
+   ``python -m repro_torch.launch.serve --reduced --ckpt-dir``, which must
+   restore step 3, run in the background from the start of phase 17 (with
+   phase 18's launchers) and are joined where phase 17 joins its own;
 17. (after 16, before 13's line) the MoE family on the card: the
    dispatch model installed into the card's store
    (``costmodel.moe_profile.install_dispatch`` over the reference's grid:
@@ -261,11 +262,40 @@ Phases (any failure exits non-zero):
    step 3) and ``python -m repro_torch.launch.serve --arch
    llama4-scout-17b-a16e --reduced``, in subprocesses while the untimed
    work runs;
+18. (after 17, before 13's line) the sub-quadratic families on the card:
+   the selective-scan kernel against its twin (``selective_scan_plain``,
+   the reference's per-step loop) in bf16 and float32 at jamba's width (1 ×
+   8,192 × 16,384 × 16), an unaligned T, one step with a carried state and
+   d_state 4 (y and h_T within SCAN_TOL at cosine >= 0.9999), the
+   full-width launch timed beside its byte bound and its twin; the
+   reference's reduced rwkv6 and jamba (``tests/data/
+   torch_recurrent_reduced.npz``, float32) through the card path (the scan
+   kernel, the FMA attention kernel at D = 16): forward logits and 8 decode
+   steps from an empty and a 40,000-token cache within FIXTURE_TOL;
+   rwkv6-3b whole at its published widths (32 layers, d_model 2,560, 40
+   heads of 64, d_ff 8,960, vocab 65,536; random bf16 weights from seed 0):
+   a warm 1 × 8,192 prefill, its profile (idle share, device time of the wkv
+   chunk work, the matmuls and the rest, kernels a layer), 2 layers in bf16
+   against float32 activations (logits at cosine >= 0.999), 16
+   teacher-forced decode steps against the forward's logits,
+   ``supports(long_500k)`` and a decode step at len 524,288 with a cache of
+   the same bytes as at 256, the greedy ``Server`` twice (8 requests, 4
+   slots, 16 new tokens, equal tokens); jamba's full-width sub-layers (d
+   8,192, 64/8 heads of 128, d_inner 16,384), sub0 (mamba + swiglu), sub1
+   (mamba + MoE 16 × 24,576 top-2) and sub4 (attention + swiglu) one at a
+   time through ``_sub_apply``: with the counts at 0, a warm 1 × 8,192
+   prefill each (one scan or attention launch), its profile and peak
+   memory, 16 teacher-forced decode steps against its rows (cosine >=
+   0.99), sub4 at 1 × 65,536 with ``window=4096`` (one launch) and a decode
+   step into a 4,096-slot ring at len 524,288; ``python -m
+   repro_torch.launch.serve --arch rwkv6-3b --reduced`` and ``--arch
+   jamba-1.5-large-398b --reduced`` in the background (see 16);
 13. print the ``-Xptxas -v`` report of one generated fused region of each
    dictionary-terminal path (a block-private table, device memory, radix)
    and the kernels' JSON line (the fused pipeline's entry with its modes:
    launches on the main paths and the largest error per mode, and the
-   timed launches' sums), then ``{"ok": true, "device": ...}`` last.
+   timed launches' sums), the script's seconds in all, then ``{"ok": true,
+   "device": ...}`` last.
 
 Every phase that runs ``Session.query`` (3–6, 10, 11 and 15) requires the
 session to have served each query at its primary rung, with no fault: the
@@ -287,6 +317,8 @@ import json
 import multiprocessing
 import os
 import re
+import shlex
+import shutil
 import subprocess
 import sys
 import time
@@ -311,8 +343,13 @@ OOC_SCALE = 10.0  # TPC-H SF 10: 60,000,000 lineitem rows
 # of the phase raises the chunk to 1 << 20 rows (58 chunks)
 OOC_CHUNK_ROWS = 1 << 20
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
-# the profiler range around ``train_profile``'s warm call
+# the profiler range around ``train_profile``'s warm call, and the one-element
+# launches it starts with: late in a run the profiler lost every kernel of a
+# 35 ms warm call (one jamba sub-layer's prefill)
 WARM_CALL = "chip_smoke.warm_call"
+WARM_LAUNCHES = 2000
+# words in the names of the matmul kernels (cuBLAS / CUTLASS) in a trace
+MATMUL_WORDS = ("gemm", "xmma", "cutlass", "nvjet", "sm90_")
 LM_ARCH, LM_SEED = "llama3.2-3b", 0
 # the reference's prefill_32k shape is 32 x 32,768; the phase runs 1 x 8,192
 # (the 32 x 32,768 bf16 logits alone are 269 GB) and times one layer's
@@ -392,6 +429,25 @@ MOE_DISPATCH_SHAPES = ((8192, 16), (8192, 128), (65536, 16), (65536, 128))
 MOE_LAYER_COS = 0.999  # one scout layer's bf16 MoE output against the same layer in float32
 # the greedy Server at scout: requests, slots, cache slots, new tokens each
 MOE_SERVE = (8, 4, 256, 16)
+# phase 18, the sub-quadratic families: rwkv6-3b whole at its published
+# widths and jamba's full-width sub-layers one at a time (a period with its
+# embedding is 89.4 GB in bf16), a prefill of one row of 8,192 tokens each
+REC_RWKV, REC_JAMBA, REC_T = "rwkv6-3b", "jamba-1.5-large-398b", 8192
+REC_T_LONG, REC_LONG_LEN = 65536, 524288  # jamba's windowed attention; long_500k's context
+REC_SUBS = (0, 1, 4)  # mamba + swiglu, mamba + MoE, attention + swiglu (as _period_init places them)
+REC_SERVE = (8, 4, 256, 16)  # requests, slots, cache slots, new tokens each
+REC_CUT_COS = 0.999  # rwkv6-3b's 2-layer bf16 logits against float32
+# the scan kernel's y and h_T against its twin: the same roundings to the
+# streams' dtype, so only float32 summation order differs
+SCAN_TOL, SCAN_COS = 1e-4, 0.9999
+# (B, T, d_in, ds, carried): jamba's width at 8,192 tokens, an unaligned T, one
+# step with a carried state, the smallest state size
+SCAN_SHAPES = [(1, 8192, 16384, 16, False), (1, 777, 16384, 16, True), (4, 1, 16384, 16, True),
+               (2, 300, 1000, 4, True)]
+# the chip fixture's configs (tests/test_torch_jamba.py: FIXTURE_CFGS)
+REC_FIXTURE = {"rwkv": (REC_RWKV, dict(d_model=32, n_layers=2)),
+               "jamba": (REC_JAMBA, dict(d_model=32, n_layers=4, n_kv_heads=2))}
+REC_FIXTURE_STEPS, REC_FIXTURE_LONG = 8, 40_000
 
 
 def check(cond, msg):
@@ -1298,15 +1354,20 @@ def train_profile(torch, fn, ranges, warm=False):
     busy time and idle share, the flash-attention kernel's and the matmuls'
     device time (by kernel name), and each profiler range's: the union of
     the device's kernel intervals inside the range's device-side span.
-    ``warm`` runs ``fn`` once more in the window first, and only what starts
-    after it counts: late in a run the profiler loses the first kernels of a
-    window (PERF.md §6), and the warm call takes the loss."""
+    ``warm`` first runs a burst of ``WARM_LAUNCHES`` one-element launches
+    and ``fn`` once more in the window, and only what starts after them
+    counts: late in a run the profiler loses the first kernels of a window
+    (PERF.md §6), at times more than a short call launches, and the warm
+    call takes the loss."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         if warm:
             with record_function(WARM_CALL):
+                x = torch.zeros((1,), device=torch.cuda.current_device())
+                for _ in range(WARM_LAUNCHES):
+                    x.add_(1)
                 fn()
             torch.cuda.synchronize()
         _, step_s = wall(torch, fn)
@@ -1336,13 +1397,17 @@ def train_profile(torch, fn, ranges, warm=False):
            "launches_profiled": len(kernels),
            "flash_attention_kernel_ms": named_ms(("attn_",)),
            "flash_attention_kernel_calls": sum(1 for _, _, n in kernels if "attn_" in n.lower()),
-           "matmul_ms": named_ms(("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
+           "matmul_ms": named_ms(MATMUL_WORDS),
+           "selective_scan_kernel_ms": named_ms(("selective_scan_kernel",)),
+           "selective_scan_kernel_calls": sum(1 for _, _, n in kernels if "selective_scan_kernel" in n),
            "top_device": [{"op": n[:60], "device_ms": ms, "calls": c} for n, (ms, c) in top]}
     for r in ranges:
         spans = union((e.time_range.start, e.time_range.end) for e in events
                       if e.name == r and e.device_type == DeviceType.CUDA and e.time_range.start >= lo_dev)
         check(spans, f"the profiler recorded no device-side span of range {r}")
         out[f"{r}_ms"] = sum(max(0.0, min(e, b) - max(s, a)) for a, b in spans for s, e in busy) / 1e3
+        gemms = union((s, e) for s, e, n in kernels if any(w in n.lower() for w in MATMUL_WORDS))
+        out[f"{r}_matmul_ms"] = sum(max(0.0, min(e, b) - max(s, a)) for a, b in spans for s, e in gemms) / 1e3
         out[f"{r}_calls"] = sum(1 for e in events if e.name == r and e.device_type == DeviceType.CPU
                                 and e.time_range.start >= lo_host)
     return out
@@ -1354,8 +1419,6 @@ def train_phase(torch, dev, src, smi):
     same step in float32; the full 28 layers trained through ``Trainer``
     with the launches counted a step, timed and profiled; determinism and
     restart at the reduced config; the launchers."""
-    import shutil
-
     import torch.nn.functional as F
 
     from repro_torch.data.lm_data import StreamConfig, TokenStream, batch_at
@@ -1608,19 +1671,6 @@ def train_phase(torch, dev, src, smi):
           f"loss difference {rel:.3g} (limit {RESTART_RTOL})")
     check(rel <= RESTART_RTOL, f"the restarted losses differ from the uninterrupted run's by {rel}")
 
-    stamp("16. LM training: the launchers")
-    env = dict(os.environ, PYTHONPATH=src)
-    d = os.path.join(scratch, "launch")
-    for cmd, first in ((["repro_torch.launch.train", "--steps", "3"], f"[launch.train] {LM_ARCH} from step 0"),
-                       (["repro_torch.launch.serve"], f"[serve] restored step 3 from {d}")):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", cmd[0], "--arch", LM_ARCH, "--reduced", "--ckpt-dir", d, *cmd[1:]],
-                              capture_output=True, text=True, env=env, timeout=600)
-        lines = proc.stdout.strip().splitlines()
-        check(proc.returncode == 0 and lines and lines[0] == first,
-              f"{cmd[0]} failed ({proc.returncode}): {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
-        print(f"python -m {cmd[0]} --arch {LM_ARCH} --reduced --ckpt-dir <dir> {' '.join(cmd[1:])} "
-              f"({time.perf_counter() - t0:.1f}s): {lines[0]} ... {lines[-1]}")
     shutil.rmtree(scratch, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"LM training phase: {out['seconds']:.1f}s on {smi}")
@@ -1658,14 +1708,12 @@ def moe_layers(MOE):
         rows.extend({"dispatch": c, "drop_fraction": float(d)} for c, d in zip(chosen, drops))
 
 
-def moe_phase(torch, dev, src, smi):
+def moe_phase(torch, dev, src, smi, background=None):
     """The MoE family on the card: the dispatch model installed and
     round-tripped; sort against scatter dispatch; llama4 scout (8 of 48
     layers) and maverick (1 layer) at their published widths through
     ``Model.forward``, decode and the ``Server``; the reduced configs'
     fixture, training and serving launchers."""
-    import shutil
-
     import torch.nn.functional as F
 
     from repro_torch import configs
@@ -1688,14 +1736,21 @@ def moe_phase(torch, dev, src, smi):
 
     # the launchers at the reduced scout config run in subprocesses while the
     # untimed work below runs; they are awaited before the first timing
-    env = dict(os.environ, PYTHONPATH=src)
     ck = os.path.join(scratch, "launch")
-    launcher_cmds = (["repro_torch.launch.train", "--steps", "3", "--ckpt-dir", ck], ["repro_torch.launch.serve"])
-    t_launch = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, "-m", cmd[0], "--arch", MOE_SCOUT, "--reduced", *cmd[1:]],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-             for cmd in launcher_cmds]
-    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])  # should the phase fail before the join
+
+    def trained(lines):
+        first = re.match(r"^step +0 +loss ([-0-9.naif]+) ", lines[1]) if len(lines) > 1 else None
+        return (lines[0] == f"[launch.train] {MOE_SCOUT} from step 0" and first is not None
+                and bool(np.isfinite(float(first.group(1)))) and CK.latest_step(ck) == 3)
+
+    launchers = start_launchers(src, [
+        (f"python -m repro_torch.launch.train --arch {MOE_SCOUT} --reduced --steps 3 --ckpt-dir <dir>",
+         [sys.executable, "-m", "repro_torch.launch.train", "--arch", MOE_SCOUT, "--reduced", "--steps", "3",
+          "--ckpt-dir", ck], trained),
+        (f"python -m repro_torch.launch.serve --arch {MOE_SCOUT} --reduced",
+         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", MOE_SCOUT, "--reduced"],
+         lambda lines: bool(re.match(r"^\[serve\] 16 requests, 256 tokens, ", lines[-1]))),
+    ])
 
     stamp("17. MoE: sort against scatter dispatch on the card")
     rng = np.random.default_rng(LM_SEED)
@@ -1829,20 +1884,11 @@ def moe_phase(torch, dev, src, smi):
     del cache, head
 
     stamp("17. MoE: the launchers")
-    for cmd, proc in zip(launcher_cmds, procs):
-        stdout, stderr = proc.communicate(timeout=600)
-        lines = stdout.strip().splitlines()
-        check(proc.returncode == 0 and lines, f"{cmd[0]} failed ({proc.returncode}): {stdout[-2000:]} {stderr[-2000:]}")
-        print(f"python -m {cmd[0]} --arch {MOE_SCOUT} --reduced {' '.join(cmd[1:])}: {lines[0]} ... {lines[-1]}")
-        if cmd[0].endswith("train"):
-            first = re.match(r"^step +0 +loss ([-0-9.naif]+) ", lines[1]) if len(lines) > 1 else None
-            check(lines[0] == f"[launch.train] {MOE_SCOUT} from step 0" and first
-                  and np.isfinite(float(first.group(1))) and CK.latest_step(ck) == 3,
-                  "the training launcher did not train 3 finite steps")
-        else:
-            check(re.match(r"^\[serve\] 16 requests, 256 tokens, ", lines[-1]), "the serving launcher did not serve")
-    out["launchers_s"] = time.perf_counter() - t_launch
+    out["launchers_s"] = finish_launchers(launchers)
     print(f"both launchers done {out['launchers_s']:.1f}s after they started")
+    if background is not None:  # phases 16 and 18's, started before this phase
+        out["background_launchers_s"] = finish_launchers(background)
+        print(f"the launchers of phases 16 and 18 done {out['background_launchers_s']:.1f}s after they started")
 
     stamp("17. MoE: the dispatch installation")
     t0 = time.perf_counter()
@@ -1982,6 +2028,328 @@ def moe_phase(torch, dev, src, smi):
     return out
 
 
+def start_launchers(src, cmds):
+    """Start each ``(label, argv, check)`` in a subprocess (``PYTHONPATH``
+    set to ``src``) and return them with the start time; killed at exit
+    should the script fail before :func:`finish_launchers`."""
+    env = dict(os.environ, PYTHONPATH=src)
+    procs = [(label, subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env), ok)
+             for label, argv, ok in cmds]
+    atexit.register(lambda: [p.kill() for _, p, _ in procs if p.poll() is None])
+    return procs, time.perf_counter()
+
+
+def finish_launchers(started):
+    """Wait for the launchers of :func:`start_launchers`, hold each one's
+    output to its check and print its first and last lines; returns the
+    seconds since they started."""
+    procs, t0 = started
+    for label, proc, ok in procs:
+        stdout, stderr = proc.communicate(timeout=600)
+        lines = stdout.strip().splitlines()
+        check(proc.returncode == 0 and lines and ok(lines),
+              f"{label} failed ({proc.returncode}): {stdout[-2000:]} {stderr[-2000:]}")
+        print(f"{label}: {lines[0]} ... {lines[-1]}")
+    return time.perf_counter() - t0
+
+
+def scan_inputs(torch, dev, case, dtype, seed):
+    """The scan's streams at ``case`` = (B, T, d_in, ds, carried): x as a
+    post-conv SiLU, dt in Mamba's range (softplus of a draw around -4), B and
+    C normal, A = -(1 .. ds) on every channel (``-exp(A_log)`` as
+    initialized), h0 normal when carried."""
+    B, T, d_in, ds, carried = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xc = torch.nn.functional.silu(torch.randn((B, T, d_in), generator=g, device=dev)).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((B, T, d_in), generator=g, device=dev) * 0.5 - 4.0).to(dtype)
+    Bt = torch.randn((B, T, ds), generator=g, device=dev).to(dtype)
+    Ct = torch.randn((B, T, ds), generator=g, device=dev).to(dtype)
+    A = -torch.arange(1, ds + 1, dtype=torch.float32, device=dev).repeat(d_in, 1)
+    h0 = torch.randn((B, d_in, ds), generator=g, device=dev) if carried else None
+    return xc, dt, Bt, Ct, A, h0
+
+
+def scan_bytes_ops(case, esz):
+    """What one scan must move and compute: x and dt, B and C, A and (when
+    carried) h0 read once, y and h_T written once (float32); 7 operations a
+    state lane a step (dt·A, its exp, (dt·x)·b, the update's and the
+    output's FMAs) and one (dt·x) a channel a step."""
+    B, T, d_in, ds, carried = case
+    nbytes = (2 * B * T * d_in * esz + 2 * B * T * ds * esz + d_in * ds * 4 + B * T * d_in * 4
+              + B * d_in * ds * 4 * (2 if carried else 1))
+    return nbytes, B * T * d_in * (7 * ds + 1)
+
+
+def recurrent_phase(torch, dev, src, smi):
+    """The sub-quadratic families on the card: the selective-scan kernel
+    against its twin and timed; the reference's reduced rwkv6 and jamba
+    through the card path; rwkv6-3b whole at its published widths
+    (prefill, profile, a bf16 cut against float32, decode, ``long_500k``,
+    the ``Server``); jamba's full-width sub-layers one at a time (prefill,
+    profile, decode, the windowed attention at 65,536 tokens and a
+    4,096-slot ring at 524,288)."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import selective_scan as SS
+    from repro_torch.models import common as MC
+    from repro_torch.models import jamba as JB
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import rwkv6 as RW
+    from repro_torch.models.config import shape
+    from repro_torch.models.interop import params_from_reference
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.serve_loop import Request, Server
+
+    out = {"allocated_before": torch.cuda.memory_allocated()}
+    t_phase = time.perf_counter()
+    root = os.path.dirname(src)
+
+    stamp("18. recurrent: the selective-scan kernel against its twin")
+    out["scan"], out["scan_err"] = [], 0.0
+    for i, case in enumerate(SCAN_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            args = scan_inputs(torch, dev, case, dtype, 200 + i)
+            got = SS.selective_scan(*args)
+            torch.cuda.synchronize()
+            want, plain_s = wall(torch, lambda: SS.selective_scan_plain(*args))
+            row = {"shape": list(case[:4]), "carried": case[4], "dtype": str(dtype).split(".")[-1]}
+            for name, g, w in zip(("y", "h_T"), got, want):
+                err = float((g - w).abs().max())
+                cos = float(F.cosine_similarity(g.flatten(), w.flatten(), dim=0))
+                check(bool(torch.allclose(g, w, rtol=SCAN_TOL, atol=SCAN_TOL)) and cos >= SCAN_COS,
+                      f"the scan kernel's {name} at {case} {dtype} is {err} off its twin (cosine {cos})")
+                row[f"{name}_max_abs_err"], row[f"{name}_cos"] = err, cos
+                out["scan_err"] = max(out["scan_err"], err)
+            if case == SCAN_SHAPES[0]:
+                nbytes, nops = scan_bytes_ops(case, dtype.itemsize)
+                row.update(ms=timed(torch, lambda: SS.selective_scan(*args), 5), plain_ms=plain_s * 1e3,
+                           bytes=nbytes, ops=nops, bound_ms=bound_ms(nbytes, nops),
+                           blocks=-(-case[2] // SS.BLOCK) * case[0])
+            out["scan"].append(row)
+            print(f"selective scan B={case[0]} T={case[1]} d_in={case[2]} ds={case[3]}"
+                  f"{' h0' if case[4] else ''} {row['dtype']}: max |kernel - twin| y {row['y_max_abs_err']:.3g} "
+                  f"(cosine {row['y_cos']:.7f}), h_T {row['h_T_max_abs_err']:.3g} (cosine {row['h_T_cos']:.7f})"
+                  + (f"; kernel {row['ms']:.3f} ms ({row['blocks']} blocks of {SS.BLOCK} channels for "
+                     f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs), twin {row['plain_ms']:.1f} ms, "
+                     f"bound {row['bound_ms']:.3f} ms (bytes)" if "ms" in row else ""))
+            del args, got, want
+    out["scan_row"] = out["scan"][0]  # bf16 at jamba's width: the kernels line
+
+    stamp("18. recurrent: the reference's reduced rwkv6 and jamba through the card path")
+    with np.load(os.path.join(root, "tests", "data", "torch_recurrent_reduced.npz")) as f:
+        flat = dict(f)
+    out["fixture"] = {}
+    for family, (name, kw) in REC_FIXTURE.items():
+        cfg = configs.get(name).reduce(**kw)
+        mod = RW if family == "rwkv" else JB
+        tree = unflatten({k.split("/", 1)[1]: a for k, a in flat.items() if k.startswith(family + "/params/")})
+        params = params_from_reference(cfg, tree, device=dev)
+        tokens = torch.from_numpy(flat[f"{family}/tokens"]).to(dev)
+        SS.selective_scan.launches = FA.flash_attention.launches = 0
+        got = mod.forward(cfg, params, tokens)[0]
+        torch.cuda.synchronize()
+        seen = (SS.selective_scan.launches, FA.flash_attention.launches)
+        n_per = cfg.n_layers // cfg.attn_period if family == "jamba" else 0
+        check(seen == (n_per * (cfg.attn_period - 1), n_per),
+              f"{family}'s fixture forward launched the scan and attention kernels {seen} times")
+        errs = [float(np.abs(got.cpu().numpy() - flat[f"{family}/logits"]).max())]
+        check(np.allclose(got.cpu().numpy(), flat[f"{family}/logits"], rtol=FIXTURE_TOL, atol=FIXTURE_TOL),
+              f"{family}'s fixture logits differ from the reference's by up to {errs[0]}")
+        for label, fill in (("empty", 0), ("long", REC_FIXTURE_LONG)):
+            cache = mod.init_cache(cfg, 2, max(fill, 16), fill_len=fill, device=dev)
+            want = flat[f"{family}/decode_{label}"]
+            for t in range(REC_FIXTURE_STEPS):
+                lg, cache = mod.decode_step(cfg, params, cache, tokens[:, t])
+                errs.append(float(np.abs(lg.cpu().numpy() - want[:, t]).max()))
+                check(np.allclose(lg.cpu().numpy(), want[:, t], rtol=FIXTURE_TOL, atol=FIXTURE_TOL),
+                      f"{family}'s fixture decode step {t} from a{'n' if fill == 0 else ''} {label} cache is "
+                      f"{errs[-1]} off the reference's")
+        out["fixture"][family] = max(errs)
+        print(f"reduced {name} ({kw}, float32) from tests/data/torch_recurrent_reduced.npz on the card: forward "
+              f"(scan / attention launches {seen}) and {REC_FIXTURE_STEPS} decode steps from an empty cache and "
+              f"from len {REC_FIXTURE_LONG}: max |port - reference| {max(errs):.3g} (tolerance {FIXTURE_TOL})")
+        del params, got, cache
+
+    stamp(f"18. recurrent: {REC_RWKV}, weights")
+    cfg = configs.get(REC_RWKV)
+    check((cfg.n_layers, cfg.d_model, cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size, cfg.d_ff, cfg.vocab,
+           cfg.padded_vocab, cfg.scan_chunk) == (32, 2560, 40, 64, 8960, 65536, 65536, 16),
+          f"{REC_RWKV} is not at its published widths")
+    model = get_model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    params = model.init(gen, dtype=torch.bfloat16)
+    rw = out["rwkv"] = {"params": sum(t.numel() for t in MC.tree_leaves(params)),
+                        "weight_bytes": sum(t.numel() * t.element_size() for t in MC.tree_leaves(params))}
+    check(rw["params"] == 3_105_018_880, f"{REC_RWKV} has {rw['params']} parameters")
+    tokens = torch.randint(0, cfg.vocab, (1, REC_T), generator=gen, device=dev)
+    logits, rw["forward_cold_s"] = wall(torch, lambda: model.forward(params, tokens)[0])
+    check(logits.shape == (1, REC_T, cfg.padded_vocab) and bool(torch.isfinite(logits).all()),
+          f"{REC_RWKV}'s logits are not finite or of the wrong shape")
+    head = logits[0, :DECODE_STEPS].float()
+    del logits
+    _, rw["forward_warm_s"] = wall(torch, lambda: model.forward(params, tokens)[0])
+    rw["profile"] = prof = train_profile(torch, lambda: model.forward(params, tokens), (RW.WKV_RANGE,), warm=True)
+    wkv = prof[f"{RW.WKV_RANGE}_ms"]
+    proj = prof["matmul_ms"] - prof[f"{RW.WKV_RANGE}_matmul_ms"]
+    rw["kernels_a_layer"] = prof["launches_profiled"] / cfg.n_layers
+    rw["chunks"] = -(-REC_T // cfg.scan_chunk)
+    print(f"{REC_RWKV}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.d_model // cfg.rwkv_head_size} heads of "
+          f"{cfg.rwkv_head_size}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {rw['params']} parameters, random bf16 "
+          f"weights (seed {LM_SEED}) {rw['weight_bytes'] / 1e9:.2f} GB; prefill 1 x {REC_T}: cold "
+          f"{rw['forward_cold_s']:.2f}s, warm {rw['forward_warm_s'] * 1e3:.1f} ms; logits finite")
+    print(json.dumps({"profile_rwkv6_prefill": prof}))
+    print(f"{REC_RWKV} profiled prefill: wall {prof['step_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f} ms, "
+          f"idle share {prof['device_idle_share']:.3f}; device ms: wkv chunk work {wkv:.2f} (its matmuls "
+          f"{prof[f'{RW.WKV_RANGE}_matmul_ms']:.2f}), the other matmuls {proj:.2f}, the rest "
+          f"{prof['device_busy_ms'] - wkv - proj:.2f}; {prof['launches_profiled']} kernels, "
+          f"{rw['kernels_a_layer']:.0f} a layer ({rw['chunks']} chunks of {cfg.scan_chunk}: one state update each)")
+
+    stamp(f"18. recurrent: {REC_RWKV}, a 2-layer cut in bf16 against float32")
+    cut = dataclasses.replace(cfg, n_layers=2)
+    p2 = {"embed": params["embed"], "layers": params["layers"][:2], "final_norm": params["final_norm"]}
+    b16 = RW.forward(cut, p2, tokens)[0]
+    f32 = RW.forward(dataclasses.replace(cut, act_dtype="float32"), p2, tokens)[0]
+    rw["cut_cos"], rw["cut_rel"] = cos_rel(torch, b16, f32)
+    del b16, f32
+    check(rw["cut_cos"] >= REC_CUT_COS, f"{REC_RWKV}'s 2-layer bf16 logits are at cosine {rw['cut_cos']} to float32")
+    print(f"{REC_RWKV}, 2 of its layers at 1 x {REC_T}: bf16 logits against float32 activations on the same "
+          f"weights: cosine {rw['cut_cos']:.6f} (>= {REC_CUT_COS}), relative error {rw['cut_rel']:.3g}")
+
+    stamp(f"18. recurrent: {REC_RWKV} decode against forward, long_500k")
+    cache = RW.init_cache(cfg, 1, 0, device=dev)
+    worst = 1.0
+    for t in range(DECODE_STEPS):
+        step, cache = model.decode_step(params, cache, tokens[:, t])
+        worst = min(worst, float(F.cosine_similarity(step[0].float(), head[t], dim=0)))
+    rw["decode_cos"] = worst
+    check(worst >= DECODE_COS, f"{REC_RWKV}'s decode logits drift from the forward's: least cosine {worst}")
+    ok, why = model.supports(shape("long_500k"))
+    check(ok, f"{REC_RWKV} refuses long_500k: {why}")
+    nbytes = {n: sum(t.numel() * t.element_size() for t in RW.init_cache(cfg, 1, n, device=dev).values())
+              for n in (256, REC_LONG_LEN)}
+    check(nbytes[256] == nbytes[REC_LONG_LEN], f"{REC_RWKV}'s cache grows with the context: {nbytes}")
+    long = RW.init_cache(cfg, 1, REC_LONG_LEN, device=dev)
+    (lg, long), rw["long_step_s"] = wall(torch, lambda: model.decode_step(params, long, tokens[:, 0]))
+    check(bool(torch.isfinite(lg).all()) and int(long["len"]) == REC_LONG_LEN + 1,
+          f"{REC_RWKV}'s decode step at len {REC_LONG_LEN} failed")
+    rw["cache_bytes"] = nbytes[REC_LONG_LEN]
+    print(f"{REC_RWKV} decode from an empty cache, {DECODE_STEPS} teacher-forced steps against the forward's logits: "
+          f"least cosine {worst:.6f} (>= {DECODE_COS}); supports(long_500k): {why}; a step at len {REC_LONG_LEN}: "
+          f"finite, {rw['long_step_s'] * 1e3:.1f} ms; the cache holds {rw['cache_bytes']} B a sequence at len "
+          f"{REC_LONG_LEN} and at 256")
+    del cache, long, head
+
+    stamp(f"18. recurrent: {REC_RWKV} Server")
+    n_req, slots, cache_len, new = REC_SERVE
+    runs = []
+    for _ in range(2):
+        srv = Server(model, params, batch_slots=slots, cache_len=cache_len, eos=-1, temperature=0.0)
+        for i in range(n_req):
+            srv.submit(Request(rid=i, prompt=[1 + i % 7, 2, 3], max_new=new))
+        done, dt = wall(torch, srv.run_until_done)
+        check(len(done) == n_req and all(len(r.out) == new for r in done),
+              f"the Server did not return {n_req} x {new} tokens")
+        runs.append(({r.rid: r.out for r in done}, dt, srv.steps_run))
+    check(runs[0][0] == runs[1][0], f"two greedy {REC_RWKV} Server runs gave different tokens")
+    rw["decode_step_ms"] = 1e3 * runs[1][1] / runs[1][2]
+    rw["serve_tok_s"] = n_req * new / runs[1][1]
+    print(f"{REC_RWKV} Server, {n_req} requests over {slots} slots, greedy: {n_req * new} tokens in {runs[1][1]:.2f}s "
+          f"({rw['serve_tok_s']:.1f} tok/s, {runs[1][2]} decode steps, {rw['decode_step_ms']:.2f} ms a step; first "
+          f"run {runs[0][1]:.2f}s); both runs gave the same tokens")
+    del params, model, srv, runs, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    stamp(f"18. recurrent: {REC_JAMBA}'s full-width sub-layers")
+    cfg = configs.get(REC_JAMBA)
+    d_in = cfg.mamba_expand * cfg.d_model
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, d_in, cfg.mamba_d_state, cfg.mamba_conv, cfg.d_ff,
+           cfg.moe_experts, cfg.moe_top_k, cfg.attn_period, cfg.long_window)
+          == (8192, 64, 8, 128, 16384, 16, 4, 24576, 16, 2, 8, 4096), f"{REC_JAMBA} is not at its published widths")
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    positions = torch.arange(REC_T, device=dev)
+    out["jamba"], launches = {}, {"selective_scan": 0, "flash_attention": 0}
+    for i in REC_SUBS:
+        torch.cuda.reset_peak_memory_stats()
+        sub = JB._sub_init(cfg, i, gen, dev, torch.bfloat16)
+        kind = ("attention" if "attn" in sub else "mamba") + (" + MoE" if "moe" in sub else " + swiglu")
+        row = out["jamba"][f"sub{i}"] = {"kind": kind, "params": sum(t.numel() for t in MC.tree_leaves(sub))}
+        x = torch.randn((1, REC_T, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+
+        def prefill():
+            return JB._sub_apply(cfg, sub, x, 0, positions=positions)[0]
+
+        y, row["cold_s"] = wall(torch, prefill)
+        SS.selective_scan.launches = FA.flash_attention.launches = 0  # the main path: one warm prefill
+        y, row["warm_s"] = wall(torch, prefill)
+        seen = {"selective_scan": SS.selective_scan.launches, "flash_attention": FA.flash_attention.launches}
+        want = {"selective_scan": int("mamba" in sub), "flash_attention": int("attn" in sub)}
+        check(seen == want, f"sub{i}'s prefill launched {seen}, not {want}")
+        check(y.shape == x.shape and bool(torch.isfinite(y).all()), f"sub{i}'s prefill is not finite")
+        for k, n in seen.items():
+            launches[k] += n
+        row["launches"] = seen
+        ranges = tuple(r for r in MOE.RANGES if r != "moe.shared") if "moe" in sub else ()  # jamba: no shared expert
+        row["profile"] = prof = train_profile(torch, prefill, ranges, warm=True)
+        row["peak_bytes"] = torch.cuda.max_memory_allocated()
+        parts = {"scan kernel": prof["selective_scan_kernel_ms"], "attention kernel": prof["flash_attention_kernel_ms"],
+                 "matmuls": prof["matmul_ms"]}
+        parts.update({r.split(".")[1]: prof[f"{r}_ms"] for r in ranges})
+        # decode: 16 teacher-forced steps against the prefill's rows
+        state = ({"k": torch.zeros((1, cfg.n_kv_heads, 64, cfg.hd), device=dev, dtype=torch.bfloat16),
+                  "v": torch.zeros((1, cfg.n_kv_heads, 64, cfg.hd), device=dev, dtype=torch.bfloat16)}
+                 if "attn" in sub else {
+                     "conv": torch.zeros((1, cfg.mamba_conv - 1, d_in), device=dev),
+                     "h": torch.zeros((1, d_in, cfg.mamba_d_state), device=dev)})
+        worst = 1.0
+        for t in range(DECODE_STEPS):
+            o, state = JB._sub_apply(cfg, sub, x[:, t:t + 1], 0, state=state,
+                                     positions=torch.tensor([t], device=dev, dtype=torch.int32))
+            worst = min(worst, float(F.cosine_similarity(o[0, 0].float(), y[0, t].float(), dim=0)))
+        row["decode_cos"] = worst
+        check(worst >= DECODE_COS, f"sub{i}'s decode drifts from its prefill: least cosine {worst}")
+        print(f"{REC_JAMBA} sub{i} ({kind}, {row['params']} parameters, bf16): prefill 1 x {REC_T}: cold "
+              f"{row['cold_s']:.2f}s, warm {row['warm_s'] * 1e3:.1f} ms, launches {seen}; profiled: wall "
+              f"{prof['step_ms']:.1f} ms, busy {prof['device_busy_ms']:.1f}, idle {prof['device_idle_share']:.3f}; "
+              f"device ms " + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+              + f"; peak max_memory_allocated {row['peak_bytes'] / 2**30:.2f} GiB; {DECODE_STEPS} decode steps "
+              f"against the prefill's rows: least cosine {worst:.5f} (>= {DECODE_COS})")
+        del y, state
+        if "attn" in sub:
+            stamp(f"18. recurrent: sub{i} at 1 x {REC_T_LONG}, window {cfg.long_window}")
+            xl = torch.randn((1, REC_T_LONG, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+            pos_l = torch.arange(REC_T_LONG, device=dev)
+            FA.flash_attention.launches = 0
+            yl, row["long_s"] = wall(torch, lambda: JB._sub_apply(cfg, sub, xl, cfg.long_window, positions=pos_l)[0])
+            check(FA.flash_attention.launches == 1 and bool(torch.isfinite(yl).all()),
+                  f"sub{i} at {REC_T_LONG} tokens: {FA.flash_attention.launches} launches, finite "
+                  f"{bool(torch.isfinite(yl).all())}")
+            launches["flash_attention"] += 1
+            del yl
+            ring = {n: torch.zeros((1, cfg.n_kv_heads, cfg.long_window, cfg.hd), device=dev, dtype=torch.bfloat16)
+                    for n in ("k", "v")}
+            (o, ring), row["ring_step_s"] = wall(torch, lambda: JB._sub_apply(
+                cfg, sub, xl[:, :1], 0, state=ring,
+                positions=torch.tensor([REC_LONG_LEN], device=dev, dtype=torch.int32)))
+            slot = REC_LONG_LEN % cfg.long_window
+            check(bool(torch.isfinite(o).all()) and float(ring["k"][:, :, slot].abs().sum()) > 0,
+                  f"sub{i}'s step at len {REC_LONG_LEN} did not write ring slot {slot}")
+            row["ring_bytes"] = sum(t.numel() * t.element_size() for t in ring.values())
+            print(f"sub{i} at 1 x {REC_T_LONG} with window {cfg.long_window}: one kernel launch, finite, "
+                  f"{row['long_s'] * 1e3:.1f} ms; a decode step at len {REC_LONG_LEN} into a {cfg.long_window}-slot "
+                  f"ring (slot {slot}, {row['ring_bytes']} B of K/V): finite, {row['ring_step_s'] * 1e3:.1f} ms")
+            del xl, ring, o
+        del sub, x
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"recurrent phase: {out['seconds']:.1f}s on {smi}")
+    return out
+
+
 def install_phase(torch, dev, refs, walls, root):
     """The installation stage on the card, then TPC-H SF 1 under the learned
     Δ: the profiling sweep over every family (counts from zero; each
@@ -1990,8 +2358,6 @@ def install_phase(torch, dev, refs, walls, root):
     the five queries' choices under both Δ, the main path under the learned
     Δ (counts from zero, every launch against its twin), and the dictionary
     kernels timed at the shapes of TPC-H SF 1."""
-    import shutil
-
     import repro_torch
     from repro_torch import costmodel as CM
     from repro_torch.core import plan as P
@@ -3227,7 +3593,8 @@ def main() -> int:
     # -- 2. build the static kernels, one nvcc each, started together ----------
     stamp("2. build")
     t0 = time.perf_counter()
-    static = ("merge_lookup", "segment_reduce", "decode", "flash_attention", "hash_probe", "sorted_lookup", "hash_build")
+    static = ("merge_lookup", "segment_reduce", "decode", "flash_attention", "hash_probe", "sorted_lookup", "hash_build",
+              "selective_scan")
     with ThreadPoolExecutor(max_workers=len(static)) as pool:
         for lib in pool.map(lambda name: build.load(name, (build.CSRC / f"{name}.cu").read_text()), static):
             check(lib is not None, "a static kernel did not load")
@@ -3897,17 +4264,46 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- the launchers of phases 16 and 18 at the reduced configs, in the
+    # background while phase 17's untimed work runs; phase 17 joins them
+    # beside its own before its first timing
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    ck = os.path.join(os.path.dirname(src), "build", "launch_smoke")
+    shutil.rmtree(ck, ignore_errors=True)
+    py = shlex.quote(sys.executable)
+    served = re.compile(r"^\[serve\] 16 requests, 256 tokens, ")
+    background = start_launchers(src, [
+        (f"python -m repro_torch.launch.train --arch {LM_ARCH} --reduced --steps 3, then launch.serve from its "
+         "checkpoint",
+         ["/bin/sh", "-c", f"{py} -m repro_torch.launch.train --arch {LM_ARCH} --reduced --ckpt-dir {shlex.quote(ck)} "
+          f"--steps 3 && {py} -m repro_torch.launch.serve --arch {LM_ARCH} --reduced --ckpt-dir {shlex.quote(ck)}"],
+         lambda lines: lines[0] == f"[launch.train] {LM_ARCH} from step 0"
+         and f"[serve] restored step 3 from {ck}" in lines and bool(served.match(lines[-1]))),
+        *((f"python -m repro_torch.launch.serve --arch {arch} --reduced",
+           [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--reduced"],
+           lambda lines: bool(served.match(lines[-1]))) for arch in (REC_RWKV, REC_JAMBA)),
+    ])
+
     # -- 17. the MoE family: llama4 scout and maverick at their published widths
     with torch.no_grad():  # inference: no graph
-        moe = moe_phase(torch, dev, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"), smi)
+        moe = moe_phase(torch, dev, src, smi, background)
     launches["moe"] = {"flash_attention": moe["launches"]}
+    shutil.rmtree(ck, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 18. the sub-quadratic families: rwkv6-3b whole, jamba's sub-layers ----
+    with torch.no_grad():  # inference: no graph
+        rec = recurrent_phase(torch, dev, src, smi)
+    launches["recurrent"] = rec["launches"]
     gc.collect()
     torch.cuda.empty_cache()
 
     # -- 13. the kernels' line --------------------------------------------------
     fa8k = lm["fa_rows"][0]
     total = {name: sum(path.get(name, 0) for path in launches.values())
-             for name in [name for _, name in kernels_of_path] + ["decode", "flash_attention"] + dict_names}
+             for name in [name for _, name in kernels_of_path] + ["decode", "flash_attention", "selective_scan"]
+             + dict_names}
 
     def entry(name, source, replaces, rows, err, library_ms):
         nbytes = sum(r["bytes"] for r in rows)
@@ -3964,6 +4360,10 @@ def main() -> int:
               inst["rows"]["sorted_lookup"]["library_ms"]),
         entry("hash_build", "src/repro_torch/kernels/csrc/hash_build.cu", "src/repro/kernels/hash_build.py:83",
               [inst["rows"]["hash_build"]], hb_err, None),
+        # jamba's mamba scan at full width, 1 x 8,192 x 16,384 x 16 in bf16; it
+        # replaces the reference's lax.scan over time (no pallas_call)
+        entry("selective_scan", "src/repro_torch/kernels/csrc/selective_scan.cu", "src/repro/models/mamba.py:95",
+              [rec["scan_row"]], rec["scan_err"], None),
     ]
     print(json.dumps({"regions": regions, "merge_lookups": ml_rows, "merge_lookup_ptxas": ml_ptxas,
                       "sorted_lookup_ptxas": inst["sorted_ptxas"], "fused_ptxas": fused_ptx,
@@ -3993,7 +4393,9 @@ def main() -> int:
                                    if k not in ("fp_err", "hb_err", "fp_mode_err", "launches", "mode_launches")},
                       "train": {k: v for k, v in train.items() if k != "profile"},
                       "moe": {k: ({kk: vv for kk, vv in v.items() if kk != "profile"} if isinstance(v, dict) else v)
-                              for k, v in moe.items()}}))
+                              for k, v in moe.items()},
+                      "recurrent": {k: v for k, v in rec.items() if k not in ("rwkv", "jamba")}}))
+    print(f"chip_smoke: {time.perf_counter() - START:.1f}s in all on {smi}")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,

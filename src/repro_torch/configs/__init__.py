@@ -1,9 +1,10 @@
 """Per-architecture configs (the twin of ``repro.configs``).
 
 Each ported module exports ``CONFIG: ArchConfig``; ``get(name)`` resolves
-ids with dashes/dots normalized.  The dense decoders and the MoE family
-(llama4) are ported; an architecture of another family raises
-``NotImplementedError`` until its slice lands (``ROADMAP.md``).
+ids with dashes/dots normalized.  The dense decoders, the MoE family
+(llama4), rwkv6 (ssm) and jamba (hybrid) are ported; an architecture of
+another family raises ``NotImplementedError`` until its slice lands
+(``ROADMAP.md``).
 """
 from importlib import import_module
 
@@ -26,8 +27,6 @@ ARCH_IDS = tuple(_ALIASES)
 _NOT_PORTED = {
     "whisper_large_v3": "audio",
     "pixtral_12b": "vlm",
-    "rwkv6_3b": "ssm",
-    "jamba_1_5_large_398b": "hybrid",
 }
 
 #: the architectures this package can build

@@ -27,6 +27,8 @@ Representation invariants (shared with ``kernels.decode``):
 from __future__ import annotations
 
 import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -603,20 +605,21 @@ def chunk_table(
     """Encode a fully-materialized ``Table`` into a host-resident
     ``ChunkedTable`` (bound to the CPU; ``.to(device)`` streams it
     elsewhere) — per-chunk, per-column encoding choice, exact Σ stats
-    captured once from the decoded data (or taken from ``stats``)."""
+    captured once from the decoded data (or taken from ``stats``).  The
+    chunks are encoded by a pool of threads (numpy releases the GIL in the
+    encoders' array passes), each chunk by one thread, in chunk order."""
     assert t.mask is None, "cannot chunk a masked table"
     assert chunk_rows % block == 0, (chunk_rows, block)
     cols = {c: to_numpy(a) for c, a in t.columns.items()}
     stats = stats if stats is not None else table_stats(t)
-    chunks: List[Dict[str, EncodedColumn]] = []
-    for start in range(0, max(t.nrows, 1), chunk_rows):
+
+    def encode_chunk(start: int) -> Dict[str, EncodedColumn]:
         stop = min(start + chunk_rows, t.nrows)
-        chunks.append(
-            {
-                c: encode_column(a[start:stop], block, model)
-                for c, a in cols.items()
-            }
-        )
+        return {c: encode_column(a[start:stop], block, model) for c, a in cols.items()}
+
+    starts = range(0, max(t.nrows, 1), chunk_rows)
+    with ThreadPoolExecutor(min(len(starts), os.cpu_count() or 1, 8)) as pool:
+        chunks: List[Dict[str, EncodedColumn]] = list(pool.map(encode_chunk, starts))
     schema = {c: str(a.dtype) for c, a in cols.items()}
     return ChunkedTable(
         chunks, chunk_rows, t.nrows, schema, tuple(t.sorted_on), stats

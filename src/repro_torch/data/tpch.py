@@ -129,3 +129,23 @@ def generate(scale: float = 0.01, seed: int = 0, device=None) -> TPCH:
     )
 
     return TPCH(lineitem, orders, customer, part, supplier, nation)
+
+
+def generate_chunked(
+    scale: float = 0.22,
+    seed: int = 0,
+    memory_budget_bytes: int = 16 << 20,
+    chunk_rows: int = 1 << 16,
+    device=None,
+) -> Dict[str, object]:
+    """Generate at ``scale`` (whole, on ``device``) and apply the
+    out-of-core storage plan: relations the ``memory_budget_bytes`` cannot
+    hold decoded become host-resident compressed ``ChunkedTable``s that the
+    engine streams chunk by chunk; the rest stay resident."""
+    from .storage import chunk_db
+
+    return chunk_db(
+        generate(scale, seed, device=device).tables(),
+        memory_budget_bytes=memory_budget_bytes,
+        chunk_rows=chunk_rows,
+    )

@@ -22,6 +22,9 @@ These stay on the plain path on either device: builds with min/max lanes
 (the reference kernel sums only), ``update_add`` (the kernel starts from an
 empty table, as the reference's does), and ``ht_twochoice`` and
 ``st_blocked`` (no reference kernel).
+
+The Mamba layers reach :func:`selective_scan`, a kernel with no
+``pallas_call`` behind it (the reference's ``lax.scan`` over time).
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from . import hash_probe as _hp
 from . import merge_lookup as _ml
 from . import ref
 from . import segment_reduce as _sr
+from . import selective_scan as _ss
 from . import sorted_lookup as _sl
 
 
@@ -96,3 +100,16 @@ def flash_attention(q, k, v, *, causal=True, window=0, kv_valid=None) -> torch.T
             return _fa.FlashAttentionFn.apply(q, k, v, causal, window)
         return _fa.flash_attention(q, k, v, causal=causal, window=window)
     return ref.attention_route(q, k, v, causal=causal, window=window, kv_valid=kv_valid)
+
+
+def selective_scan(xc, dt, Bt, Ct, A, h0=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(y, h_T)`` of a Mamba layer's scan (``kernels/selective_scan.py``):
+    the kernel on CUDA tensors, its twin on CPU tensors.  The kernel has no
+    backward: under grad mode with a CUDA input that requires grad it
+    raises (training the hybrid on the card is a later slice, ROADMAP.md);
+    on the CPU the twin is differentiable."""
+    if xc.is_cuda and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (xc, dt, Bt, Ct, A, h0)):
+        raise NotImplementedError("selective_scan: the kernel has no backward; training the hybrid on the card "
+                                  "waits for its slice (ROADMAP.md)")
+    return _ss.selective_scan(xc, dt, Bt, Ct, A, h0)

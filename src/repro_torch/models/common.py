@@ -79,6 +79,20 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return x * inv * p["scale"].to(x.dtype)
 
 
+def layernorm_init(d: int, device) -> Params:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Mean and variance in float32 over the last dimension, the affine
+    terms applied in float32, the result cast back to ``x.dtype``."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # rotary position embeddings
 # ---------------------------------------------------------------------------

@@ -1,10 +1,14 @@
 """The reference's LM parameters as the port's.
 
-``params_from_reference(cfg, tree)`` takes ``repro.models.lm``'s parameter
-pytree as numpy arrays (layers stacked on a leading ``[L, ...]`` axis,
-projections laid out ``[d_in, d_out]`` for ``x @ W``) and returns the port's
-parameters: a list of layers, projections transposed to ``nn.Linear``'s
-``[d_out, d_in]``.  A MoE layer's router is transposed to ``[E, d]`` and
+``params_from_reference(cfg, tree)`` takes the parameter pytree of
+``repro.models.lm`` (or, by ``cfg.model_kind``, ``rwkv6`` / ``jamba``) as
+numpy arrays (layers stacked on a leading ``[L, ...]`` axis, jamba's
+periods on ``[P, ...]``, projections laid out ``[d_in, d_out]`` for ``x @
+W``) and returns the port's parameters: a list of layers (of periods),
+projections transposed to ``nn.Linear``'s ``[d_out, d_in]``.  rwkv's
+``mu``, ``w0``, ``u`` and layernorms, and mamba's ``conv_w [K, d_in]``,
+``conv_b``, ``dt_bias``, ``A_log`` and ``D`` are kept as they are.  A MoE
+layer's router is transposed to ``[E, d]`` and
 its shared expert as ``mlp`` is; its expert stacks keep the reference's
 ``[E, d, f]`` / ``[E, f, d]`` layout (``models.moe`` applies them as
 batched ``x @ W``), so they are copied unchanged, and the same layout
@@ -23,9 +27,17 @@ from repro_torch.data.table import resolve_device
 from .common import Params
 from .config import ArchConfig
 
-_PROJECTIONS = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("wi", "wg", "wo")}
-_BIASES = ("bq", "bk", "bv")
-_EXPERT_STACKS = ("wi", "wg", "wo")
+# the leaves transposed, by the block that holds them
+_TRANSPOSED = {
+    "attn": {"wq", "wk", "wv", "wo"},
+    "mlp": {"wi", "wg", "wo"},
+    "moe": {"router"},
+    "shared": {"wi", "wg", "wo"},
+    "head": {"w"},
+    "mamba": {"in_proj", "x_proj", "dt_proj", "out_proj"},
+    "tmix": {"wr", "wk", "wv", "wg", "ww", "wo"},
+    "cmix": {"wk", "wv", "wr"},
+}
 
 
 def _tensor(a, device, transpose: bool = False) -> torch.Tensor:
@@ -37,37 +49,39 @@ def _tensor(a, device, transpose: bool = False) -> torch.Tensor:
     return (t.T.contiguous() if transpose else t).to(device)
 
 
+# the decoder's keys in the order ``lm.init`` builds them: the reference's
+# trees come with their keys sorted, and the order of the leaves is the
+# order in which the optimizer sums them.  A key not named keeps its place
+_ORDER = {k: r for r, k in enumerate((
+    "embed", "layers", "final_norm", "head", "attn_norm", "mlp_norm", "attn", "mlp", "moe",
+    "router", "wi", "wg", "wq", "wk", "wv", "wo", "bq", "bk", "bv", "shared"))}
+
+
+def _ordered(node) -> list:
+    return sorted(node, key=lambda k: _ORDER.get(k, len(_ORDER)))
+
+
+def _block(node, dev, i=None, transposed=frozenset()) -> Params:
+    """A block of the reference's tree (entry ``i`` of it where it is
+    stacked), its leaves in ``transposed`` (by the name of the block that
+    holds them) transposed."""
+    out = {}
+    for k in _ordered(node):
+        v = node[k]
+        out[k] = (_block(v, dev, i, _TRANSPOSED.get(k, frozenset())) if isinstance(v, dict)
+                  else _tensor(v if i is None else v[i], dev, transpose=k in transposed))
+    return out
+
+
 def params_from_reference(cfg: ArchConfig, tree, device=None) -> Params:
     dev = resolve_device(device)
-    lt = tree["layers"]
-    layers = []
-    for i in range(cfg.n_layers):
-        layer = {
-            "attn_norm": {"scale": _tensor(lt["attn_norm"]["scale"][i], dev)},
-            "mlp_norm": {"scale": _tensor(lt["mlp_norm"]["scale"][i], dev)},
-        }
-        for block, names in _PROJECTIONS.items():
-            if block in lt:
-                layer[block] = {n: _tensor(lt[block][n][i], dev, transpose=True) for n in names}
-        for n in _BIASES:
-            if n in lt["attn"]:
-                layer["attn"][n] = _tensor(lt["attn"][n][i], dev)
-        if "moe" in lt:
-            moe = lt["moe"]
-            layer["moe"] = {"router": _tensor(moe["router"][i], dev, transpose=True),
-                            **{n: _tensor(moe[n][i], dev) for n in _EXPERT_STACKS}}
-            if "shared" in moe:
-                layer["moe"]["shared"] = {n: _tensor(moe["shared"][n][i], dev, transpose=True)
-                                          for n in _PROJECTIONS["mlp"]}
-        layers.append(layer)
-    out = {
-        "embed": {"table": _tensor(tree["embed"]["table"], dev)},
-        "layers": layers,
-        "final_norm": {"scale": _tensor(tree["final_norm"]["scale"], dev)},
-    }
-    if "head" in tree:
-        out["head"] = {"w": _tensor(tree["head"]["w"], dev, transpose=True)}
-    return out
+    if cfg.model_kind == "jamba":
+        stack, n = "periods", cfg.n_layers // cfg.attn_period
+    else:
+        stack, n = "layers", cfg.n_layers
+    out = _block({k: v for k, v in tree.items() if k != stack}, dev)
+    out[stack] = [_block(tree[stack], dev, i) for i in range(n)]
+    return {k: out[k] for k in _ordered(out)}
 
 
 def opt_state_from_reference(cfg: ArchConfig, state, device=None) -> Params:

@@ -1,5 +1,6 @@
 """Model registry (the twin of ``repro.models.registry``): a uniform API over
-the model kinds, of which the port has the decoder (dense and MoE).
+the model kinds, of which the port has the decoder (dense and MoE), rwkv
+(``ssm``) and jamba (``hybrid``).
 
 ``get_model(cfg, device)`` returns a ``Model`` with:
 
@@ -24,7 +25,9 @@ import torch
 
 from repro_torch.data.table import resolve_device
 
+from . import jamba as jamba_mod
 from . import lm as lm_mod
+from . import rwkv6 as rwkv6_mod
 from .config import ArchConfig, ShapeSpec
 
 
@@ -55,10 +58,10 @@ class Model:
         return self.mod.decode_step(self.cfg, params, cache, token)
 
     def supports(self, shape: ShapeSpec) -> Tuple[bool, str]:
-        # the port has only full-attention decoders (dense and MoE: the
-        # reference's answer for both); its sub-quadratic answer for
-        # ssm/hybrid comes with those families
+        # the reference's answer by family
         if shape.name == "long_500k":
+            if self.cfg.family in ("ssm", "hybrid"):
+                return True, "sub-quadratic (SSM/windowed-attention) path"
             return False, "pure full attention is quadratic at 500k (DESIGN.md §5)"
         return True, ""
 
@@ -78,7 +81,7 @@ class Model:
         }
 
 
-_KIND_TO_MOD = {"decoder": lm_mod}
+_KIND_TO_MOD = {"decoder": lm_mod, "rwkv": rwkv6_mod, "jamba": jamba_mod}
 
 
 def get_model(cfg: ArchConfig, device=None) -> Model:

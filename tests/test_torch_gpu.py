@@ -40,7 +40,12 @@ bit for bit.  An adaptive session races q1 and q3 at TPC-H SF 0.01, every
 lane valid by the card's rule, and records whether two runs of one Γ are
 bitwise equal.  A 2-shard session runs q3 and q18 at TPC-H SF 0.01 on the
 card against the resident session and numpy, every launch of its warm run
-held against its twin.
+held against its twin.  The selective-scan kernel runs bfloat16 and float32
+at d_state 4, 8 and 16 against its twin (a carried state, T = 1, ragged
+time tiles and channel blocks, strided B / C), refuses what it does not take
+and training through it, and reduced rwkv6 and jamba forwards and decode
+steps on the card follow the CPU's, the scan kernel launched once a Mamba
+sub-layer.
 """
 import contextlib
 import dataclasses
@@ -73,7 +78,9 @@ from repro_torch.kernels import merge_lookup as ml
 from repro_torch.kernels import ref
 from repro_torch.kernels import sorted_lookup as sl
 from repro_torch.kernels import segment_reduce as sr
-from repro_torch.models import common, lm, moe
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import selective_scan as ssk
+from repro_torch.models import common, jamba, lm, moe, rwkv6
 from repro_torch.models.registry import get_model_by_name
 
 pytestmark = pytest.mark.gpu
@@ -1516,3 +1523,78 @@ def test_sharded_session_on_card(cuda, shard_db, qname):
         for args, _, out in calls:
             vals, found = twin(*args)
             assert torch.equal(out[1], found) and torch.equal(out[0], vals)
+
+
+# (B, T, d_in, ds, carried): jamba's d_state, ragged time tiles and channel
+# blocks, one step with a carried state, the smaller state sizes
+SCAN_CASES = [(1, 300, 384, 16, False), (2, 77, 200, 16, True), (1, 1, 130, 16, True), (3, 33, 64, 4, True),
+              (1, 64, 129, 8, False)]
+
+
+def _scan_inputs(case, dtype, cuda, seed=0):
+    B, T, d_in, ds, carried = case
+    g = torch.Generator().manual_seed(seed)
+    xc = torch.randn((B, T, d_in), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((B, T, d_in), generator=g) - 2)
+    proj = torch.randn((B, T, 2 * ds + 3), generator=g)  # B and C as strided slices of a projection
+    A = -torch.exp(torch.log(torch.arange(1, ds + 1, dtype=torch.float32)).repeat(d_in, 1))
+    h0 = torch.randn((B, d_in, ds), generator=g) if carried else None
+    dev = [t.to(cuda) for t in (xc, dt, proj)]
+    xc, dt, proj = (t.to(dtype) for t in dev)
+    return xc, dt, proj[..., 3:3 + ds], proj[..., 3 + ds:], A.to(cuda).to(dtype), (
+        None if h0 is None else h0.to(cuda))
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_selective_scan_kernel_matches_plain(cuda, case, dtype):
+    args = _scan_inputs(case, dtype, cuda)
+    ssk.selective_scan.launches = 0
+    y, h = ssk.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ssk.selective_scan.launches == 1 and y.dtype == h.dtype == torch.float32
+    want_y, want_h = ssk.selective_scan_plain(*args)
+    # the same roundings to the streams' dtype: only float32 summation order differs
+    torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-4)
+
+
+def test_selective_scan_kernel_refuses_what_it_does_not_take(cuda):
+    xc, dt, Bt, Ct, A, _ = _scan_inputs((1, 8, 64, 16, False), torch.float32, cuda)
+    with pytest.raises(ValueError, match="state size"):
+        ssk.selective_scan(xc, dt, Bt[..., :5], Ct[..., :5], A[:, :5])
+    with pytest.raises(ValueError, match="bfloat16 or all float32"):
+        ssk.selective_scan(xc, dt.to(torch.bfloat16), Bt, Ct, A)
+    with pytest.raises(ValueError, match="h0"):
+        ssk.selective_scan(xc, dt, Bt, Ct, A, torch.zeros((1, 64, 16), device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        kops.selective_scan(xc.requires_grad_(), dt, Bt, Ct, A)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])
+def test_recurrent_forward_and_decode_on_card(cuda, arch, monkeypatch):
+    """A reduced rwkv6 / jamba (float32) forward and 4 decode steps on the
+    card against the CPU's; jamba's scan kernel launches once a Mamba
+    sub-layer and its attention kernel once a period."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cpu = get_model_by_name(arch, reduced=True, device="cpu")
+    cfg = dataclasses.replace(cpu.cfg, n_kv_heads=2) if arch.startswith("jamba") else cpu.cfg
+    mod = jamba if arch.startswith("jamba") else rwkv6
+    params = mod.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator().manual_seed(1))
+    want, _ = mod.forward(cfg, params, toks)
+    dev_params = common.tree_map(lambda t: t.to(cuda), params)
+    ssk.selective_scan.launches = fa.flash_attention.launches = 0
+    got, _ = mod.forward(cfg, dev_params, toks.to(cuda))
+    torch.cuda.synchronize()
+    if arch.startswith("jamba"):
+        n_periods = cfg.n_layers // cfg.attn_period
+        assert ssk.selective_scan.launches == n_periods * (cfg.attn_period - 1)
+        assert fa.flash_attention.launches == n_periods
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    tc = mod.init_cache(cfg, 2, 16, fill_len=0, device="cpu")
+    dc = mod.init_cache(cfg, 2, 16, fill_len=0, device=cuda)
+    for t in range(4):
+        w, tc = mod.decode_step(cfg, params, tc, toks[:, t])
+        g, dc = mod.decode_step(cfg, dev_params, dc, toks[:, t].to(cuda))
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)

@@ -310,7 +310,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_other_model_kinds_raise():
-    # the MoE decoders are ported (tests/test_torch_moe.py); rwkv is not
+    # lm.init builds decoders only (rwkv and jamba have modules of their own,
+    # tests/test_torch_rwkv6.py and tests/test_torch_jamba.py); encdec is not ported
     rwkv = ArchConfig("r", "ssm", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=512,
                       model_kind="rwkv")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
