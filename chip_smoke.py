@@ -65,15 +65,18 @@ Phases (any failure exits non-zero):
    3,072, 24/8 heads of 128, d_ff 8,192, vocab 128,256; random bf16 weights
    from seed 0, 6.4 GB): the flash-attention kernel against its twin at
    llama's layer at 2,048 and at small bf16 and f32 shapes (MHA, GQA, MQA,
-   Tq < Tk, non-causal, a window, unaligned lengths, rows that see no key);
+   Tq < Tk, non-causal, a window, unaligned lengths, rows that see no key),
+   and at phase 19's shapes (pixtral's layer at D = 160 at 2,048 and 1,000,
+   D = 160 non-causal with Tq < Tk, whisper's encoder over 1,500 frames and
+   its cross attention of 448 and of 1 query over them);
    with the count at 0, a warm prefill forward at 1 × 8,192 through
    ``Model.forward`` (28 launches, finite logits, a profiled pass); the
    kernel at the forward's layer-0 inputs against its twin; the kernel, its
    twin and ``scaled_dot_product_attention`` timed at one layer's shape at
    T = 8,192 and 32,768 beside the bound (TFLOP/s and share of the bound);
    the wgmma kernel's ``-Xptxas -v`` report, dynamic shared memory and
-   HGMMA / HMMA counts in the library's SASS (``cuobjdump``; "not
-   measured" without it); 16 teacher-forced ``decode_step``
+   HGMMA / HMMA counts in the library's SASS at D = 64, 128 and 160
+   (``cuobjdump``; "not measured" without it); 16 teacher-forced ``decode_step``
    calls from an empty cache against the forward's logits (cosine >= 0.99
    a row); the continuous-batching ``Server`` twice, greedy (16 requests, 4
    slots, 256 cache slots, 16 new tokens each, equal tokens); ``python -m
@@ -213,7 +216,9 @@ Phases (any failure exits non-zero):
    at phase 9's tolerances, at llama3.2-3b's layer (H = 24, Hkv = 8, D =
    128, bf16, causal) at the training shapes 8 x 256 and 1 x 4,096 (the
    chunked route) and at 1 x 2,048 (dense), and at small MHA / GQA / MQA,
-   window, unaligned, float32 D = 16 and bf16 D = 16 / 64 shapes, the
+   window, unaligned, float32 D = 16 and bf16 D = 16 / 64 shapes, at
+   pixtral's layer (D = 160, 2,048 and 1,000; float32 D = 160) and at
+   whisper's non-causal encoder and cross shapes (Tq != Tk), the
    backward timed beside the forward kernel and SDPA's forward + backward
    (printed only); one step of a 2-layer cut at full width against the same
    step with float32 activations and the plain attention route (loss within
@@ -290,6 +295,44 @@ Phases (any failure exits non-zero):
    step into a 4,096-slot ring at len 524,288; ``python -m
    repro_torch.launch.serve --arch rwkv6-3b --reduced`` and ``--arch
    jamba-1.5-large-398b --reduced`` in the background (see 16);
+19. (after 18, before 13's line) whisper and pixtral on the card: the
+   wgmma and FMA kernels' ``-Xptxas -v`` report at D = 160 and the wgmma
+   kernel's shared memory there (phase 9 held D = 160 and whisper's shapes
+   against the twin); the reference's reduced whisper (2 + 2 layers, D =
+   16) and pixtral at ``head_dim=160`` (``tests/data/
+   torch_encdec_vlm_reduced.npz``, float32, the FMA kernel at D = 16 and
+   160): forward logits (6 and 2 launches) and whisper's 4 decode steps over
+   ``encode(frames)`` (2 launches a step) within FIXTURE_TOL; pixtral-12b
+   whole (40 layers, d_model 5,120, 32/8 heads of 160, d_ff 14,336, vocab
+   131,072 tied; random bf16 weights from seed 0, 24.2 GB): with the count
+   at 0, a warm prefill through ``Model.forward(..., patches=)`` of 1 ×
+   8,192 (1,024 patch rows, 7,168 tokens; 40 launches at D = 160, finite
+   logits), its profile (idle share, device time of the attention kernel,
+   the matmuls and the rest), layer 0's attention at its forward inputs
+   against its twin, and the kernel, its twin and SDPA timed there beside
+   the bound, 2 layers in bf16 against float32 activations (cosine >=
+   0.999), 16 teacher-forced decode steps against a token-only forward
+   (cosine >= 0.99 a row), the greedy ``Server`` twice (8 requests, 4
+   slots, 256 cache slots, 16 new tokens, equal tokens), the peak device
+   memory; then whisper-large-v3 whole (32 + 32 layers, 1,500 frames,
+   d_model 1,280, 20 heads of 64, d_ff 5,120, vocab 51,866; 3.07 GB),
+   loaded after pixtral's weights are freed: with the count at 0, a warm
+   ``encode`` of 8 × 1,500 frames (32 launches) and a warm forward of 8 ×
+   448 tokens over them (96 launches: encoder, decoder self, cross), finite,
+   profiled; the kernel at the encoder's, the cross attention's and one
+   decode token's cross inputs against its twin and timed beside the bound
+   and SDPA; 2 + 2 layers in bf16 against float32 (cosine >= 0.999); 8
+   decode steps of 4 rows over ``encode(frames)`` (32 launches a step, the
+   cross attention) against the same steps in float32 activations (cosine
+   >= 0.99 a row: the reference's decode adds no position, so no forward
+   matches it), a step's wall and the share of its per-step cross K/V
+   projections; the greedy ``Server`` twice (the zero ``enc_out`` of
+   ``init_cache``, as the reference's); one loss and gradient of the 2 +
+   2-layer cut (12 launches: non-causal encoder, Tq != Tk cross, each
+   twice under remat) against float32 activations and the plain route
+   (each leaf at cosine >= 0.99); ``python -m repro_torch.launch.serve
+   --arch whisper-large-v3 --reduced`` and ``--arch pixtral-12b
+   --reduced`` in the background (see 16);
 13. print the ``-Xptxas -v`` report of one generated fused region of each
    dictionary-terminal path (a block-private table, device memory, radix)
    and the kernels' JSON line (the fused pipeline's entry with its modes:
@@ -368,7 +411,11 @@ FA_LONG_ROW, FA_REL_TOL = 256, 1e-2
 # (B, H, Hkv, Tq, Tk, D, causal, window): llama3.2-3b's layer at 2,048, then
 # MHA, GQA, MQA with Tq < Tk, non-causal, a window, unaligned lengths and
 # rows that see no key (the reference suite's cases and more), then lengths
-# that straddle the wgmma kernel's 128-row tiles, with and without a window
+# that straddle the wgmma kernel's 128-row tiles, with and without a window;
+# then phase 19's: pixtral's layer (D = 160) at 2,048 and unaligned,
+# non-causal D = 160 with Tq < Tk, whisper's encoder (non-causal over 1,500
+# frames) and its cross attention (448 decoder tokens, and one decode token,
+# over 1,500 frames)
 FA_SHAPES = [
     (1, 24, 8, 2048, 2048, 128, True, 0),
     (1, 2, 2, 64, 64, 16, True, 0),
@@ -380,27 +427,42 @@ FA_SHAPES = [
     (2, 4, 2, 100, 37, 64, True, 0),
     (1, 4, 2, 129, 1000, 128, True, 0),
     (1, 4, 2, 1000, 129, 64, True, 200),
+    (1, 32, 8, 2048, 2048, 160, True, 0),
+    (1, 32, 8, 1000, 1000, 160, True, 0),
+    (2, 4, 1, 7, 1500, 160, False, 0),
+    (1, 20, 20, 1500, 1500, 64, False, 0),
+    (2, 20, 20, 448, 1500, 64, False, 0),
+    (4, 20, 20, 1, 1500, 64, False, 0),
 ]
 # phase 16, LM training: the launcher's defaults (global batch 8 x 256, seed
 # 0), then one step at train_4k's sequence length (one row of 4,096)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LONG = 8, 256, 6, 4096
-# the attention gradient, all causal (B, H, Hkv, T, D, dtype, window):
+# the attention gradient (B, H, Hkv, Tq, Tk, D, dtype, window, causal):
 # llama3.2-3b's layer at the training path's two shapes (8 x 256 and
 # 1 x 4,096, the reference's chunked route), on the dense route at 2,048
 # keys, then MHA, GQA, MQA, a window, an unaligned T, float32 at D = 16 and
-# bfloat16 at D = 16 and 64.  Each case also holds the forward's output
+# bfloat16 at D = 16 and 64, all causal; then pixtral's layer (D = 160) at
+# 2,048 and unaligned, float32 at D = 160, and whisper's non-causal shapes
+# (its encoder at 1,500 frames, its cross attention with Tq != Tk).  Each
+# case also holds the forward's output
 FA_GRAD_SHAPES = [
-    (8, 24, 8, 256, 128, "bfloat16", 0),
-    (1, 24, 8, 2048, 128, "bfloat16", 0),
-    (1, 24, 8, 4096, 128, "bfloat16", 0),
-    (2, 4, 4, 256, 128, "bfloat16", 0),
-    (2, 8, 2, 256, 64, "bfloat16", 0),
-    (1, 8, 1, 256, 64, "bfloat16", 0),
-    (1, 4, 2, 512, 128, "bfloat16", 100),
-    (1, 4, 2, 1000, 128, "bfloat16", 0),
-    (2, 4, 2, 300, 16, "float32", 0),
-    (2, 4, 2, 300, 16, "bfloat16", 0),
-    (2, 4, 2, 300, 64, "bfloat16", 0),
+    (8, 24, 8, 256, 256, 128, "bfloat16", 0, True),
+    (1, 24, 8, 2048, 2048, 128, "bfloat16", 0, True),
+    (1, 24, 8, 4096, 4096, 128, "bfloat16", 0, True),
+    (2, 4, 4, 256, 256, 128, "bfloat16", 0, True),
+    (2, 8, 2, 256, 256, 64, "bfloat16", 0, True),
+    (1, 8, 1, 256, 256, 64, "bfloat16", 0, True),
+    (1, 4, 2, 512, 512, 128, "bfloat16", 100, True),
+    (1, 4, 2, 1000, 1000, 128, "bfloat16", 0, True),
+    (2, 4, 2, 300, 300, 16, "float32", 0, True),
+    (2, 4, 2, 300, 300, 16, "bfloat16", 0, True),
+    (2, 4, 2, 300, 300, 64, "bfloat16", 0, True),
+    (1, 32, 8, 2048, 2048, 160, "bfloat16", 0, True),
+    (1, 32, 8, 1000, 1000, 160, "bfloat16", 0, True),
+    (2, 4, 2, 300, 300, 160, "float32", 0, True),
+    (1, 20, 20, 1500, 1500, 64, "bfloat16", 0, False),
+    (2, 20, 20, 448, 1500, 64, "bfloat16", 0, False),
+    (2, 4, 1, 7, 1500, 160, "bfloat16", 0, False),
 ]
 GRAD_COS = 0.999  # each of dq, dk, dv against the plain route in float32
 # the 2-layer bfloat16 step against the same step in float32 with the plain
@@ -448,6 +510,20 @@ SCAN_SHAPES = [(1, 8192, 16384, 16, False), (1, 777, 16384, 16, True), (4, 1, 16
 REC_FIXTURE = {"rwkv": (REC_RWKV, dict(d_model=32, n_layers=2)),
                "jamba": (REC_JAMBA, dict(d_model=32, n_layers=4, n_kv_heads=2))}
 REC_FIXTURE_STEPS, REC_FIXTURE_LONG = 8, 40_000
+# phase 19, whisper and pixtral whole at their published widths and depths
+# (random bf16 weights, seed 0): pixtral's prefill is one row of 8,192
+# positions, 1,024 patch rows in front of 7,168 tokens; whisper encodes 8 x
+# 1,500 frames and runs 8 x 448 decoder tokens over them (the reference's
+# decoder length), its decode 4 rows (the Server's slots)
+PIX_ARCH, WSP_ARCH = "pixtral-12b", "whisper-large-v3"
+PIX_T, PIX_NV, WSP_B, WSP_T, WSP_DECODE_STEPS = 8192, 1024, 8, 448, 8
+ENCDEC_SERVE = (8, 4, 256, 16)  # requests, slots, cache slots, new tokens each
+CUT_COS = 0.999  # a 2-layer (2 + 2) cut's bf16 logits against float32 activations
+# the chip fixture's configs (tests/test_torch_whisper.py: FIXTURE_CFGS)
+ENCDEC_VLM_FIXTURE = {"whisper": (WSP_ARCH, dict(d_model=32, n_layers=2)),
+                      "pixtral": (PIX_ARCH, dict(d_model=32, n_layers=2, n_heads=2, n_kv_heads=1, head_dim=160,
+                                                 d_ff=64))}
+ENCDEC_FIXTURE_STEPS = 4
 
 
 def check(cond, msg):
@@ -1133,7 +1209,6 @@ def lm_phase(torch, dev, src):
     from repro_torch.models import lm as LM
     from repro_torch.models.interop import params_from_reference
     from repro_torch.models.registry import get_model_by_name
-    from repro_torch.serve.serve_loop import Request, Server
 
     out = {}
     stamp("9. LM inference: weights")
@@ -1239,7 +1314,7 @@ def lm_phase(torch, dev, src):
     for entry, line in ptxas_lines(build, "flash_attention", "attn_wgmma_kernel"):
         print(f"flash attention ptxas ...{entry[-48:]}: {line}")
     print("flash attention wgmma kernel: 384 threads, dynamic shared memory "
-          + ", ".join(f"D={D} {lib.flash_attention_wgmma_smem(D)} B" for D in (64, 128)))
+          + ", ".join(f"D={D} {lib.flash_attention_wgmma_smem(D)} B" for D in (64, 128, 160)))
     sass = sass_counts(lib._name, ("HGMMA", "HMMA"))
     out["sass"] = sass
     if sass is None:
@@ -1248,7 +1323,7 @@ def lm_phase(torch, dev, src):
         for fn, counts in sass.items():
             print(f"flash attention SASS ...{fn[-48:]}: {counts['HGMMA']} HGMMA, {counts['HMMA']} HMMA")
         wgmma_fns = [c for fn, c in sass.items() if "attn_wgmma_kernel" in fn]
-        check(len(wgmma_fns) == 2 and all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in wgmma_fns),
+        check(len(wgmma_fns) == 3 and all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in wgmma_fns),
               "the wgmma kernels do not run on HGMMA alone")
 
     stamp("9. LM inference: decode against forward")
@@ -1267,24 +1342,11 @@ def lm_phase(torch, dev, src):
     del cache, head
 
     stamp("9. LM inference: Server")
-    runs = []
     FA.flash_attention.launches = 0
-    for _ in range(2):
-        srv = Server(model, params, batch_slots=4, cache_len=256, eos=-1, temperature=0.0)
-        for i in range(16):
-            srv.submit(Request(rid=i, prompt=[1 + i % 7, 2, 3], max_new=16))
-        done, dt = wall(torch, srv.run_until_done)
-        check(len(done) == 16 and all(len(r.out) == 16 for r in done), "the Server did not return 16 x 16 tokens")
-        runs.append(({r.rid: r.out for r in done}, dt, srv.steps_run))
-    check(runs[0][0] == runs[1][0], "two greedy Server runs gave different tokens")
+    out.update(serve_twice(torch, model, params, (16, 4, 256, 16), LM_ARCH))
     out["serve_launches"] = FA.flash_attention.launches
-    out["serve_s"], out["serve_steps"] = runs[1][1], runs[1][2]
-    out["serve_tok_s"] = 256 / runs[1][1]
-    out["decode_step_ms"] = 1e3 * runs[1][1] / runs[1][2]
-    print(f"Server, 16 requests over 4 slots, cache 256, greedy: 256 tokens in {runs[1][1]:.2f}s "
-          f"({out['serve_tok_s']:.1f} tok/s, {runs[1][2]} decode steps, {out['decode_step_ms']:.2f} ms a step; "
-          f"first run {runs[0][1]:.2f}s); both runs gave the same tokens; flash-attention launches "
-          f"{out['serve_launches']} (decode attends through the plain kv_valid path, as in the reference)")
+    print(f"flash-attention launches in the two Server runs: {out['serve_launches']} (decode attends through the "
+          f"plain kv_valid path, as in the reference)")
     cache = model.init_cache(4, 256)
     tok = torch.tensor([1, 2, 3, 4], device=dev)
 
@@ -1296,7 +1358,7 @@ def lm_phase(torch, dev, src):
     prof = profile_pass(torch, eight_steps, 8)
     out["decode_profile"] = prof
     print(json.dumps({"profile_decode_8_steps": prof}))
-    del cache, params, srv, runs
+    del cache, params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1438,18 +1500,19 @@ def train_phase(torch, dev, src, smi):
 
     stamp("16. LM training: the attention gradient")
     rows = []
-    for i, (B, H, Hkv, T, D, dtype, window) in enumerate(FA_GRAD_SHAPES):
+    for i, (B, H, Hkv, Tq, T, D, dtype, window, causal) in enumerate(FA_GRAD_SHAPES):
         g = torch.Generator(device=dev).manual_seed(100 + i)
         dt = getattr(torch, dtype)
-        q, k, v = (torch.randn((B, h, T, D), generator=g, device=dev).to(dt).requires_grad_() for h in (H, Hkv, Hkv))
-        d_out = torch.randn((B, H, T, D), generator=g, device=dev).to(dt)
-        o = FA.FlashAttentionFn.apply(q, k, v, True, window)
+        q, k, v = (torch.randn((B, h, n, D), generator=g, device=dev).to(dt).requires_grad_()
+                   for h, n in ((H, Tq), (Hkv, T), (Hkv, T)))
+        d_out = torch.randn((B, H, Tq, D), generator=g, device=dev).to(dt)
+        o = FA.FlashAttentionFn.apply(q, k, v, causal, window)
         got = torch.autograd.grad(o, (q, k, v), d_out)
         qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
-        of = KR.attention_route(qf, kf, vf, causal=True, window=window)
+        of = KR.attention_route(qf, kf, vf, causal=causal, window=window)
         want = torch.autograd.grad(of, (qf, kf, vf), d_out.float())
-        row = {"B": B, "H": H, "Hkv": Hkv, "T": T, "D": D, "dtype": dtype, "window": window,
-               "route": "chunked" if T > 2048 else "dense"}
+        row = {"B": B, "H": H, "Hkv": Hkv, "Tq": Tq, "T": T, "D": D, "dtype": dtype, "window": window,
+               "causal": causal, "route": "chunked" if T > 2048 else "dense"}
         # the forward: the kernel's output against the float32 route's
         # rounded to the kernel's dtype, within phase 9's tolerances plus one
         # step of that dtype at the output's magnitude.  Phase 9's twin rounds
@@ -1461,7 +1524,7 @@ def train_phase(torch, dev, src, smi):
         row["out_max_abs_err"] = float((o - ofr).abs().max())
         row["out_err_at"] = float(ofr.flatten()[(o - ofr).abs().argmax()].abs())
         row["out_beyond_step"], row["out_long_row_rel"] = check_attention(
-            torch, o, ofr, dtype, T, True, window, f"forward at {row}", steps=eps)
+            torch, o, ofr, dtype, T, causal, window, f"forward at {row}", steps=eps)
         del o, of, ofr
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             check(a.dtype == dt and a.shape == b.shape and bool(torch.isfinite(a).all()),
@@ -1483,7 +1546,8 @@ def train_phase(torch, dev, src, smi):
                 F.scaled_dot_product_attention(qd, kd, vd, is_causal=True, enable_gqa=True), (qd, kd, vd), d_out), 10)
             del qd, kd, vd
         rows.append(row)
-        print(f"attention gradient {dtype} B={B} H={H} Hkv={Hkv} T={T} D={D} window={window} ({row['route']} route): "
+        print(f"attention gradient {dtype} B={B} H={H} Hkv={Hkv} Tq={Tq} Tk={T} D={D} window={window} causal={causal} "
+              f"({row['route']} route): "
               f"output max |kernel - float32| {row['out_max_abs_err']:.3g} at |o| {row['out_err_at']:.3g} "
               f"({row['out_beyond_step']:.3g} beyond one step of |o|, tolerance {FA_TOL[dtype]}), "
               + ", ".join(f"{n} cosine {row[n]['cos']:.6f} rel {row[n]['rel_fro']:.3g}" for n in ("dq", "dk", "dv"))
@@ -1725,7 +1789,6 @@ def moe_phase(torch, dev, src, smi, background=None):
     from repro_torch.models import moe as MOE
     from repro_torch.models.interop import params_from_reference
     from repro_torch.models.registry import get_model
-    from repro_torch.serve.serve_loop import Request, Server
     from repro_torch.train import checkpoint as CK
 
     out = {"allocated_before": torch.cuda.memory_allocated()}
@@ -1886,9 +1949,9 @@ def moe_phase(torch, dev, src, smi, background=None):
     stamp("17. MoE: the launchers")
     out["launchers_s"] = finish_launchers(launchers)
     print(f"both launchers done {out['launchers_s']:.1f}s after they started")
-    if background is not None:  # phases 16 and 18's, started before this phase
+    if background is not None:  # phases 16, 18 and 19's, started before this phase
         out["background_launchers_s"] = finish_launchers(background)
-        print(f"the launchers of phases 16 and 18 done {out['background_launchers_s']:.1f}s after they started")
+        print(f"the launchers of phases 16, 18 and 19 done {out['background_launchers_s']:.1f}s after they started")
 
     stamp("17. MoE: the dispatch installation")
     t0 = time.perf_counter()
@@ -1947,24 +2010,8 @@ def moe_phase(torch, dev, src, smi, background=None):
           f"device ms by part: {split_line(scout['profile'])}")
 
     stamp("17. MoE: scout Server")
-    n_req, slots, cache_len, new = MOE_SERVE
-    runs = []
-    for _ in range(2):
-        srv = Server(model, params, batch_slots=slots, cache_len=cache_len, eos=-1, temperature=0.0)
-        for i in range(n_req):
-            srv.submit(Request(rid=i, prompt=[1 + i % 7, 2, 3], max_new=new))
-        done, dt = wall(torch, srv.run_until_done)
-        check(len(done) == n_req and all(len(r.out) == new for r in done),
-              f"the Server did not return {n_req} x {new} tokens")
-        runs.append(({r.rid: r.out for r in done}, dt, srv.steps_run))
-    check(runs[0][0] == runs[1][0], "two greedy Server runs gave different tokens")
-    scout["serve_s"], scout["serve_steps"] = runs[1][1], runs[1][2]
-    scout["decode_step_ms"] = 1e3 * runs[1][1] / runs[1][2]
-    scout["serve_tok_s"] = n_req * new / runs[1][1]
-    print(f"scout Server, {n_req} requests over {slots} slots, cache {cache_len}, greedy: {n_req * new} tokens in "
-          f"{runs[1][1]:.2f}s ({scout['serve_tok_s']:.1f} tok/s, {runs[1][2]} decode steps, "
-          f"{scout['decode_step_ms']:.2f} ms a step; first run {runs[0][1]:.2f}s); both runs gave the same tokens")
-    del params, model, srv, runs, tokens
+    scout.update(serve_twice(torch, model, params, MOE_SERVE, "scout"))
+    del params, model, tokens
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2100,7 +2147,6 @@ def recurrent_phase(torch, dev, src, smi):
     from repro_torch.models.config import shape
     from repro_torch.models.interop import params_from_reference
     from repro_torch.models.registry import get_model
-    from repro_torch.serve.serve_loop import Request, Server
 
     out = {"allocated_before": torch.cuda.memory_allocated()}
     t_phase = time.perf_counter()
@@ -2242,23 +2288,8 @@ def recurrent_phase(torch, dev, src, smi):
     del cache, long, head
 
     stamp(f"18. recurrent: {REC_RWKV} Server")
-    n_req, slots, cache_len, new = REC_SERVE
-    runs = []
-    for _ in range(2):
-        srv = Server(model, params, batch_slots=slots, cache_len=cache_len, eos=-1, temperature=0.0)
-        for i in range(n_req):
-            srv.submit(Request(rid=i, prompt=[1 + i % 7, 2, 3], max_new=new))
-        done, dt = wall(torch, srv.run_until_done)
-        check(len(done) == n_req and all(len(r.out) == new for r in done),
-              f"the Server did not return {n_req} x {new} tokens")
-        runs.append(({r.rid: r.out for r in done}, dt, srv.steps_run))
-    check(runs[0][0] == runs[1][0], f"two greedy {REC_RWKV} Server runs gave different tokens")
-    rw["decode_step_ms"] = 1e3 * runs[1][1] / runs[1][2]
-    rw["serve_tok_s"] = n_req * new / runs[1][1]
-    print(f"{REC_RWKV} Server, {n_req} requests over {slots} slots, greedy: {n_req * new} tokens in {runs[1][1]:.2f}s "
-          f"({rw['serve_tok_s']:.1f} tok/s, {runs[1][2]} decode steps, {rw['decode_step_ms']:.2f} ms a step; first "
-          f"run {runs[0][1]:.2f}s); both runs gave the same tokens")
-    del params, model, srv, runs, tokens
+    rw.update(serve_twice(torch, model, params, REC_SERVE, REC_RWKV))
+    del params, model, tokens
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2347,6 +2378,428 @@ def recurrent_phase(torch, dev, src, smi):
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t_phase
     print(f"recurrent phase: {out['seconds']:.1f}s on {smi}")
+    return out
+
+
+def attention_row(torch, what, q, k, v, causal, reps):
+    """The kernel at these (real) inputs against its twin, then the kernel,
+    its twin (one call) and SDPA timed beside the bound; printed."""
+    from repro_torch.kernels import flash_attention as FA
+
+    got = FA.flash_attention(q, k, v, causal=causal)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    ev[1].record()
+    torch.cuda.synchronize()
+    # real activations reach |o| of 2 and more (whisper's encoder: layernormed
+    # sinusoids through random projections), where one bf16 step of the
+    # output is 2^-6, above FA_TOL alone: beyond one step of |twin|, as phase
+    # 16 holds its forward
+    beyond, rel = check_attention(torch, got, want, "bfloat16", k.shape[2], causal, 0,
+                                  f"{what} at its forward inputs", steps=torch.finfo(torch.bfloat16).eps)
+    err = float((got.float() - want.float()).abs().max())
+    del got, want
+    nb, nops, bms = attention_bound(q, k, causal, 0)
+    ms = timed(torch, lambda: FA.flash_attention(q, k, v, causal=causal), reps)
+
+    def sdpa():  # the yardstick; the port never calls it
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+
+    lib_ms = timed(torch, sdpa, reps)
+    lib_err = float((FA.flash_attention(q, k, v, causal=causal).float() - sdpa().float()).abs().max())
+    (B, H, Tq, D), (Hkv, Tk) = q.shape, k.shape[1:3]
+    row = {"what": what, "B": B, "H": H, "Hkv": Hkv, "Tq": Tq, "Tk": Tk, "D": D, "causal": causal,
+           "max_abs_err": err, "beyond_step": beyond, "long_row_rel": rel, "ms": ms, "plain_ms": ev[0].elapsed_time(ev[1]),
+           "library_ms": lib_ms, "max_abs_diff_library": lib_err, "bytes": nb, "ops": nops, "bound_ms": bms,
+           "bound_by": "bytes" if nb / HBM_BYTES_PER_S >= nops / BF16_OPS_PER_S else "operations",
+           "tflop_s": nops / ms / 1e9, "bound_share": bms / ms}
+    print(f"flash attention, {what}: B={B} H={H} Hkv={Hkv} Tq={Tq} Tk={Tk} D={D} causal={causal} bf16 at its forward "
+          f"inputs: max |kernel - twin| {err:.3g}, {beyond:.3g} beyond one bf16 step of |twin| (tolerance "
+          f"{FA_TOL['bfloat16']})"
+          + ("" if rel is None else f", long rows {rel:.3g} of their norm")
+          + f"; kernel {ms:.3f} ms ({row['tflop_s']:.1f} TFLOP/s, {row['bound_share']:.3f} of its bound {bms:.3f} ms, "
+          f"{row['bound_by']}), twin {row['plain_ms']:.1f} ms, scaled_dot_product_attention {lib_ms:.3f} ms "
+          f"(max |kernel - it| {lib_err:.3g})")
+    return row
+
+
+def prefill_parts(prof):
+    """A profiled prefill's device time by part: the attention kernel, the
+    matmuls, the rest."""
+    return {"attention kernel": prof["flash_attention_kernel_ms"], "matmuls": prof["matmul_ms"],
+            "rest": prof["device_busy_ms"] - prof["flash_attention_kernel_ms"] - prof["matmul_ms"]}
+
+
+def serve_twice(torch, model, params, spec, what):
+    """The greedy ``Server`` twice at ``spec`` = (requests, slots, cache
+    slots, new tokens): equal tokens; (seconds, steps) of the second run."""
+    from repro_torch.serve.serve_loop import Request, Server
+
+    n_req, slots, cache_len, new = spec
+    runs = []
+    for _ in range(2):
+        srv = Server(model, params, batch_slots=slots, cache_len=cache_len, eos=-1, temperature=0.0)
+        for i in range(n_req):
+            srv.submit(Request(rid=i, prompt=[1 + i % 7, 2, 3], max_new=new))
+        done, dt = wall(torch, srv.run_until_done)
+        check(len(done) == n_req and all(len(r.out) == new for r in done),
+              f"the {what} Server did not return {n_req} x {new} tokens")
+        runs.append(({r.rid: r.out for r in done}, dt, srv.steps_run))
+    check(runs[0][0] == runs[1][0], f"two greedy {what} Server runs gave different tokens")
+    out = {"serve_s": runs[1][1], "serve_steps": runs[1][2], "serve_first_s": runs[0][1],
+           "decode_step_ms": 1e3 * runs[1][1] / runs[1][2], "serve_tok_s": n_req * new / runs[1][1]}
+    print(f"{what} Server, {n_req} requests over {slots} slots, cache {cache_len}, greedy: {n_req * new} tokens in "
+          f"{out['serve_s']:.2f}s ({out['serve_tok_s']:.1f} tok/s, {out['serve_steps']} decode steps, "
+          f"{out['decode_step_ms']:.2f} ms a step; first run {out['serve_first_s']:.2f}s); both runs gave the same "
+          f"tokens")
+    return out
+
+
+def encdec_vlm_phase(torch, dev, src, smi):
+    """whisper and pixtral on the card at their published widths and depths:
+    the reference's reduced models through the card path; pixtral-12b whole
+    (a 1 × 8,192 prefill with 1,024 patch rows, its profile, the kernel at
+    D = 160 at its layer-0 inputs and timed, a 2-layer cut in bf16 against
+    float32, decode against a token-only forward, the ``Server``, the peak
+    memory); whisper-large-v3 whole (``encode`` of 8 × 1,500 frames and an 8
+    × 448 forward with their launches and profile, the kernel at the
+    encoder's and the cross attention's inputs and timed, a 2 + 2-layer cut
+    in bf16 against float32, decode over ``encode(frames)`` against float32
+    activations, the ``Server``, a decode step's wall and its cross K/V
+    share, one loss and gradient of the cut against float32 and the plain
+    attention route)."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops as KO
+    from repro_torch.kernels import ref as KR
+    from repro_torch.models import common as MC
+    from repro_torch.models import lm as LM
+    from repro_torch.models import whisper as WH
+    from repro_torch.models.interop import params_from_reference
+    from repro_torch.models.registry import get_model
+
+    out = {"allocated_before": torch.cuda.memory_allocated(), "launches": {}, "rows": []}
+    t_phase = time.perf_counter()
+    root = os.path.dirname(src)
+    errs = []
+
+    stamp("19. whisper and pixtral: the flash-attention kernel at D = 160 as built")
+    lib = build.load("flash_attention", (build.CSRC / "flash_attention.cu").read_text())
+    out["ptxas_d160"] = [f"{entry[-48:]}: {line}" for entry, line in ptxas_lines(build, "flash_attention", "ILi160E")]
+    for line in out["ptxas_d160"]:
+        print(f"flash attention ptxas ...{line}")
+    check(len(out["ptxas_d160"]) >= 2, "no ptxas report of the kernels at D = 160")
+    lib.flash_attention_wgmma_smem.argtypes, lib.flash_attention_wgmma_smem.restype = [ctypes.c_int], ctypes.c_int
+    out["wgmma_smem_d160"] = lib.flash_attention_wgmma_smem(160)
+    print(f"the wgmma kernel at D = 160: 384 threads, 128 x 64 tiles, dynamic shared memory "
+          f"{out['wgmma_smem_d160']} B (phase 9 held D = 160 and whisper's shapes against the twin)")
+
+    stamp("19. whisper and pixtral: the reference's reduced models through the card path")
+    with np.load(os.path.join(root, "tests", "data", "torch_encdec_vlm_reduced.npz")) as f:
+        flat = dict(f)
+    fix = out["fixture"] = {}
+    for family, (name, kw) in ENCDEC_VLM_FIXTURE.items():
+        cfg = configs.get(name).reduce(**kw)
+        tree = unflatten({k.split("/", 1)[1]: a for k, a in flat.items() if k.startswith(family + "/params/")})
+        params = params_from_reference(cfg, tree, device=dev)
+        tokens = torch.from_numpy(flat[f"{family}/tokens"]).to(dev)
+        FA.flash_attention.launches = 0
+        if family == "whisper":
+            frames = torch.from_numpy(flat["whisper/frames"]).to(dev)
+            got = WH.forward(cfg, params, tokens, frames)[0]
+            want_launches = cfg.enc_layers + 2 * cfg.n_layers
+        else:
+            got = LM.forward(cfg, params, tokens, patch_embeds=torch.from_numpy(flat["pixtral/patches"]).to(dev))[0]
+            want_launches = cfg.n_layers
+        torch.cuda.synchronize()
+        seen = FA.flash_attention.launches
+        check(seen == want_launches, f"{family}'s fixture forward launched the kernel {seen} times, not {want_launches}")
+        e = [float(np.abs(got.cpu().numpy() - flat[f"{family}/logits"]).max())]
+        check(np.allclose(got.cpu().numpy(), flat[f"{family}/logits"], rtol=FIXTURE_TOL, atol=FIXTURE_TOL),
+              f"{family}'s fixture logits differ from the reference's by up to {e[0]}")
+        if family == "whisper":
+            cache = WH.init_cache(cfg, tokens.shape[0], 16, fill_len=0, device=dev)
+            cache["enc_out"] = WH.encode(cfg, params, frames)
+            for t in range(ENCDEC_FIXTURE_STEPS):
+                FA.flash_attention.launches = 0
+                lg, cache = WH.decode_step(cfg, params, cache, tokens[:, t])
+                check(FA.flash_attention.launches == cfg.n_layers,
+                      f"whisper's fixture decode step launched the kernel {FA.flash_attention.launches} times")
+                e.append(float(np.abs(lg.cpu().numpy() - flat["whisper/decode"][:, t]).max()))
+                check(np.allclose(lg.cpu().numpy(), flat["whisper/decode"][:, t], rtol=FIXTURE_TOL, atol=FIXTURE_TOL),
+                      f"whisper's fixture decode step {t} is {e[-1]} off the reference's")
+        fix[family] = max(e)
+        print(f"reduced {name} ({kw}, float32, D = {cfg.hd}) from tests/data/torch_encdec_vlm_reduced.npz on the "
+              f"card: forward ({seen} launches)" + (f" and {ENCDEC_FIXTURE_STEPS} decode steps over encode(frames) "
+                                                   f"({cfg.n_layers} launches a step)" if family == "whisper" else "")
+              + f": max |port - reference| {max(e):.3g} (tolerance {FIXTURE_TOL})")
+        del params, got
+
+    stamp(f"19. {PIX_ARCH}: weights")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get(PIX_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab, cfg.vision_tokens,
+           cfg.tie_embeddings) == (40, 5120, 32, 8, 160, 14336, 131072, 1024, True),
+          f"{PIX_ARCH} is not at its published widths")
+    model = get_model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    params = model.init(gen, dtype=torch.bfloat16)
+    px = out["pixtral"] = {"params": sum(t.numel() for t in MC.tree_leaves(params)),
+                           "weight_bytes": sum(t.numel() * t.element_size() for t in MC.tree_leaves(params))}
+    check(px["params"] == 12_100_981_760, f"{PIX_ARCH} has {px['params']} parameters")
+    tokens = torch.randint(0, cfg.vocab, (1, PIX_T - PIX_NV), generator=gen, device=dev)
+    patches = torch.randn((1, PIX_NV, cfg.d_model), generator=gen, device=dev) * 0.02
+    print(f"{PIX_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab} (tied); {px['params']} parameters, random bf16 weights "
+          f"(seed {LM_SEED}) {px['weight_bytes'] / 1e9:.2f} GB")
+
+    stamp(f"19. {PIX_ARCH}: prefill 1 x {PIX_T} ({PIX_NV} patch rows), counts from zero")
+
+    def prefill():
+        return model.forward(params, tokens, patches=patches)[0]
+
+    _, px["forward_cold_s"] = wall(torch, prefill)
+    torch.cuda.reset_peak_memory_stats()
+    FA.flash_attention.launches = 0  # the main path: one warm prefill
+    logits, px["forward_warm_s"] = wall(torch, prefill)
+    px["prefill_peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["launches"]["pixtral_prefill"] = FA.flash_attention.launches
+    check(FA.flash_attention.launches == cfg.n_layers,
+          f"{FA.flash_attention.launches} flash-attention launches in a prefill of {cfg.n_layers} layers")
+    check(logits.shape == (1, PIX_T, cfg.padded_vocab) and bool(torch.isfinite(logits).all()),
+          f"{PIX_ARCH}'s logits are not finite or of the wrong shape")
+    del logits
+    px["profile"] = prof = train_profile(torch, prefill, (), warm=True)
+    px["parts_ms"] = parts = prefill_parts(prof)
+    print(f"{PIX_ARCH} prefill 1 x {PIX_T} ({PIX_NV} patches + {PIX_T - PIX_NV} tokens): cold "
+          f"{px['forward_cold_s']:.2f}s, warm {px['forward_warm_s'] * 1e3:.1f} ms, {cfg.n_layers} launches at D = "
+          f"{cfg.hd}, logits finite, peak {px['prefill_peak_bytes'] / 2**30:.2f} GiB; profiled: wall {prof['step_ms']:.1f} ms, busy {prof['device_busy_ms']:.1f} ms, "
+          f"idle {prof['device_idle_share']:.3f}; device ms " + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+
+    stamp(f"19. {PIX_ARCH}: layer 0's attention at its forward inputs")
+    lp, pos = params["layers"][0], torch.arange(PIX_T, device=dev)
+    x = MC.rmsnorm(lp["attn_norm"], torch.cat([patches.to(torch.bfloat16),
+                                               MC.embed(params["embed"], tokens).to(torch.bfloat16)], dim=1))
+    q, k, v = (F.linear(x, lp["attn"]["w" + n]).view(1, PIX_T, h, cfg.hd).transpose(1, 2)
+               for n, h in (("q", cfg.n_heads), ("k", cfg.n_kv_heads), ("v", cfg.n_kv_heads)))
+    q, k = MC.rope(q, pos, cfg.rope_theta), MC.rope(k, pos, cfg.rope_theta)
+    del x
+    row = attention_row(torch, f"{PIX_ARCH} layer 0", q, k, v, True, 10)
+    row["forward_ms"], row["forward_bound_ms"] = row["ms"] * cfg.n_layers, row["bound_ms"] * cfg.n_layers
+    out["rows"].append(row)
+    errs.append(row["max_abs_err"])
+    del q, k, v
+
+    stamp(f"19. {PIX_ARCH}: 2 layers in bf16 against float32 activations")
+    cut = dataclasses.replace(cfg, n_layers=2)
+    p2 = {"embed": params["embed"], "layers": params["layers"][:2], "final_norm": params["final_norm"]}
+    b16 = LM.forward(cut, p2, tokens, patch_embeds=patches)[0]
+    f32 = LM.forward(dataclasses.replace(cut, act_dtype="float32"), p2, tokens, patch_embeds=patches)[0]
+    px["cut_cos"], px["cut_rel"] = cos_rel(torch, b16, f32)
+    del b16, f32
+    check(px["cut_cos"] >= CUT_COS, f"{PIX_ARCH}'s 2-layer bf16 logits are at cosine {px['cut_cos']} to float32")
+    print(f"{PIX_ARCH}, 2 of its layers at 1 x {PIX_T} with patches: bf16 logits against float32 activations on the "
+          f"same weights: cosine {px['cut_cos']:.6f} (>= {CUT_COS}), relative error {px['cut_rel']:.3g}")
+
+    stamp(f"19. {PIX_ARCH}: decode against a token-only forward")
+    head = model.forward(params, tokens[:, :DECODE_STEPS])[0][0].float()
+    cache = LM.init_cache(cfg, 1, 64, fill_len=0, device=dev)
+    worst = 1.0
+    for t in range(DECODE_STEPS):
+        step, cache = model.decode_step(params, cache, tokens[:, t])
+        worst = min(worst, float(F.cosine_similarity(step[0].float(), head[t], dim=0)))
+    px["decode_cos"] = worst
+    check(worst >= DECODE_COS, f"{PIX_ARCH}'s decode logits drift from the forward's: least cosine {worst}")
+    print(f"{PIX_ARCH} decode from an empty cache, {DECODE_STEPS} teacher-forced steps against a token-only "
+          f"forward's logits: least cosine {worst:.6f} (>= {DECODE_COS})")
+    del cache, head
+
+    stamp(f"19. {PIX_ARCH}: Server")
+    px.update(serve_twice(torch, model, params, ENCDEC_SERVE, PIX_ARCH))
+    px["peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"{PIX_ARCH}: peak max_memory_allocated {px['prefill_peak_bytes'] / 2**30:.2f} GiB in the warm prefill, "
+          f"{px['peak_bytes'] / 2**30:.2f} GiB from it to the Server (the float32 cut and its cosine's float32 "
+          f"copies of 1 x {PIX_T} x {cfg.padded_vocab} logits included) on {smi}")
+    del params, model, tokens, patches, p2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    stamp(f"19. {WSP_ARCH}: weights")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get(WSP_ARCH)
+    check((cfg.enc_layers, cfg.n_layers, cfg.enc_seq, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff,
+           cfg.vocab, cfg.padded_vocab) == (32, 32, 1500, 1280, 20, 20, 64, 5120, 51866, 51968),
+          f"{WSP_ARCH} is not at its published widths")
+    model = get_model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    params = model.init(gen, dtype=torch.bfloat16)
+    ws = out["whisper"] = {"params": sum(t.numel() for t in MC.tree_leaves(params)),
+                           "weight_bytes": sum(t.numel() * t.element_size() for t in MC.tree_leaves(params))}
+    check(ws["params"] == 1_535_349_760, f"{WSP_ARCH} has {ws['params']} parameters")
+    frames = torch.randn((WSP_B, cfg.enc_seq, cfg.d_model), generator=gen, device=dev) * 0.02
+    tokens = torch.randint(0, cfg.vocab, (WSP_B, WSP_T), generator=gen, device=dev)
+    print(f"{WSP_ARCH}: {cfg.enc_layers} + {cfg.n_layers} layers, {cfg.enc_seq} frames, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab} (padded {cfg.padded_vocab}); "
+          f"{ws['params']} parameters, random bf16 weights (seed {LM_SEED}) {ws['weight_bytes'] / 1e9:.2f} GB")
+
+    stamp(f"19. {WSP_ARCH}: encode {WSP_B} x {cfg.enc_seq} frames and forward {WSP_B} x {WSP_T}, counts from zero")
+
+    def encode():
+        return WH.encode(cfg, params, frames)
+
+    def forward():
+        return model.forward(params, tokens, frames=frames)[0]
+
+    _, ws["encode_cold_s"] = wall(torch, encode)
+    FA.flash_attention.launches = 0  # the main path: a warm encode, then a warm forward
+    enc_out, ws["encode_warm_s"] = wall(torch, encode)
+    out["launches"]["whisper_encode"] = FA.flash_attention.launches
+    check(FA.flash_attention.launches == cfg.enc_layers,
+          f"{FA.flash_attention.launches} launches in an encode of {cfg.enc_layers} layers")
+    check(enc_out.shape == (WSP_B, cfg.enc_seq, cfg.d_model) and bool(torch.isfinite(enc_out).all()),
+          "the encoder's output is not finite or of the wrong shape")
+    _, ws["forward_cold_s"] = wall(torch, forward)
+    FA.flash_attention.launches = 0
+    logits, ws["forward_warm_s"] = wall(torch, forward)
+    out["launches"]["whisper_forward"] = FA.flash_attention.launches
+    check(FA.flash_attention.launches == cfg.enc_layers + 2 * cfg.n_layers,
+          f"{FA.flash_attention.launches} launches in a forward of {cfg.enc_layers} + {cfg.n_layers} layers")
+    check(logits.shape == (WSP_B, WSP_T, cfg.padded_vocab) and bool(torch.isfinite(logits).all()),
+          f"{WSP_ARCH}'s logits are not finite or of the wrong shape")
+    del logits
+    ws["profile"] = prof = train_profile(torch, forward, (), warm=True)
+    ws["parts_ms"] = parts = prefill_parts(prof)
+    print(f"{WSP_ARCH}: encode {WSP_B} x {cfg.enc_seq}: cold {ws['encode_cold_s']:.2f}s, warm "
+          f"{ws['encode_warm_s'] * 1e3:.1f} ms, {out['launches']['whisper_encode']} launches; forward {WSP_B} x "
+          f"{WSP_T} over the frames: cold {ws['forward_cold_s']:.2f}s, warm {ws['forward_warm_s'] * 1e3:.1f} ms, "
+          f"{out['launches']['whisper_forward']} launches (encoder, decoder self, cross), logits finite; profiled: "
+          f"wall {prof['step_ms']:.1f} ms, busy {prof['device_busy_ms']:.1f} ms, idle {prof['device_idle_share']:.3f}; "
+          f"device ms " + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+
+    stamp(f"19. {WSP_ARCH}: the encoder's and the cross attention's layer-0 inputs")
+    lp = params["enc_layers"][0]
+    x = MC.layernorm(lp["attn_norm"], (frames + WH._sinusoid(cfg.enc_seq, cfg.d_model, dev)[None]).to(torch.bfloat16))
+    q, k, v = (F.linear(x, lp["attn"]["w" + n]).view(WSP_B, cfg.enc_seq, cfg.n_heads, cfg.hd).transpose(1, 2)
+               for n in "qkv")
+    out["rows"].append(attention_row(torch, f"{WSP_ARCH} encoder layer 0", q, k, v, False, 20))
+    lp = params["dec_layers"][0]
+    y = MC.embed(params["embed"], tokens).to(torch.bfloat16) + WH._sinusoid(WSP_T, cfg.d_model, dev)[None].to(
+        torch.bfloat16)
+    h, _ = MC.attention(lp["self_attn"], MC.layernorm(lp["self_norm"], y), n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                        head_dim=cfg.hd, causal=True, use_rope=False)
+    cn = MC.layernorm(lp["cross_norm"], y + h)
+    q = F.linear(cn, lp["cross_attn"]["wq"]).view(WSP_B, WSP_T, cfg.n_heads, cfg.hd).transpose(1, 2)
+    k, v = (F.linear(enc_out, lp["cross_attn"]["w" + n]).view(WSP_B, cfg.enc_seq, cfg.n_heads, cfg.hd).transpose(1, 2)
+            for n in "kv")
+    out["rows"].append(attention_row(torch, f"{WSP_ARCH} cross attention, layer 0", q, k, v, False, 20))
+    slots = ENCDEC_SERVE[1]
+    out["rows"].append(attention_row(torch, f"{WSP_ARCH} cross attention of one decode token, layer 0",
+                                     q[:slots, :, :1], k[:slots], v[:slots], False, 50))
+    errs.extend(r["max_abs_err"] for r in out["rows"][-3:])
+    del x, y, h, cn, q, k, v
+
+    stamp(f"19. {WSP_ARCH}: 2 + 2 layers in bf16 against float32 activations")
+    cut = dataclasses.replace(cfg, enc_layers=2, n_layers=2)
+    p2 = {"embed": params["embed"], "enc_layers": params["enc_layers"][:2], "dec_layers": params["dec_layers"][:2],
+          "enc_norm": params["enc_norm"], "dec_norm": params["dec_norm"]}
+    b16 = WH.forward(cut, p2, tokens, frames)[0]
+    f32 = WH.forward(dataclasses.replace(cut, act_dtype="float32"), p2, tokens, frames)[0]
+    ws["cut_cos"], ws["cut_rel"] = cos_rel(torch, b16, f32)
+    del b16, f32
+    check(ws["cut_cos"] >= CUT_COS, f"{WSP_ARCH}'s 2 + 2-layer bf16 logits are at cosine {ws['cut_cos']} to float32")
+    print(f"{WSP_ARCH}, 2 encoder and 2 decoder layers at {WSP_B} x {WSP_T} over {WSP_B} x {cfg.enc_seq} frames: "
+          f"bf16 logits against float32 activations on the same weights: cosine {ws['cut_cos']:.6f} (>= {CUT_COS}), "
+          f"relative error {ws['cut_rel']:.3g}")
+
+    stamp(f"19. {WSP_ARCH}: decode over encode(frames) against float32 activations")
+    cfg32 = dataclasses.replace(cfg, act_dtype="float32")
+    caches = {}
+    for c in (cfg, cfg32):
+        caches[c.act_dtype] = WH.init_cache(c, slots, 64, fill_len=0, device=dev)
+        caches[c.act_dtype]["enc_out"] = WH.encode(c, params, frames[:slots])
+    worst, step_launches = 1.0, []
+    for t in range(WSP_DECODE_STEPS):
+        FA.flash_attention.launches = 0  # the main path: a decode step
+        lg, caches["bfloat16"] = model.decode_step(params, caches["bfloat16"], tokens[:slots, t])
+        step_launches.append(FA.flash_attention.launches)
+        lg32, caches["float32"] = WH.decode_step(cfg32, params, caches["float32"], tokens[:slots, t])
+        check(bool(torch.isfinite(lg).all()), f"{WSP_ARCH}'s decode step {t} is not finite")
+        worst = min(worst, float(F.cosine_similarity(lg.float(), lg32, dim=-1).min()))
+    out["launches"]["whisper_decode_step"] = step_launches[-1]
+    check(all(n == cfg.n_layers for n in step_launches), f"whisper's decode steps launched {step_launches} times")
+    ws["decode_cos"] = worst
+    check(worst >= DECODE_COS, f"{WSP_ARCH}'s bf16 decode drifts from float32: least cosine {worst}")
+    tok = tokens[:slots, 0]
+    cache = caches["bfloat16"]
+    ws["decode_step_ms"] = 1e3 * wall(torch, lambda: [model.decode_step(params, cache, tok)
+                                                      for _ in range(WSP_DECODE_STEPS)])[1] / WSP_DECODE_STEPS
+    enc4 = cache["enc_out"]
+
+    def cross_kv():
+        for lp in params["dec_layers"]:
+            F.linear(enc4, lp["cross_attn"]["wk"])
+            F.linear(enc4, lp["cross_attn"]["wv"])
+
+    ws["cross_kv_ms"] = timed(torch, cross_kv, 5)
+    ws["cross_kv_flop"] = 2 * 2 * slots * cfg.enc_seq * cfg.d_model * cfg.n_heads * cfg.hd * cfg.n_layers
+    ws["cross_kv_share"] = ws["cross_kv_ms"] / ws["decode_step_ms"]
+    print(f"{WSP_ARCH} decode over encode(frames), {slots} rows from an empty cache, {WSP_DECODE_STEPS} steps, "
+          f"{cfg.n_layers} launches a step (cross attention; self attention takes the plain kv_valid route): each "
+          f"step's bf16 logits against float32 activations: least cosine {worst:.6f} (>= {DECODE_COS}); a step "
+          f"takes {ws['decode_step_ms']:.2f} ms (host clock), of which the {2 * cfg.n_layers} cross K/V projections "
+          f"recomputed every step take {ws['cross_kv_ms']:.2f} ms on the device ({ws['cross_kv_flop'] / 1e12:.3f} "
+          f"TFLOP, {ws['cross_kv_share']:.3f} of the step)")
+    del caches, cache, enc4
+
+    stamp(f"19. {WSP_ARCH}: Server (the zero enc_out of init_cache, as the reference's)")
+    ws.update(serve_twice(torch, model, params, ENCDEC_SERVE, WSP_ARCH))
+
+    stamp(f"19. {WSP_ARCH}: one loss and gradient of the 2 + 2-layer cut against float32 and the plain route")
+    with torch.enable_grad():
+        pg = MC.tree_map(lambda t: t.detach().clone().requires_grad_(), p2)
+        batch = {"tokens": tokens[:2], "labels": torch.roll(tokens[:2], -1, dims=1), "frames": frames[:2]}
+        FA.flash_attention.launches = 0
+        loss = WH.loss_fn(cut, pg, batch)
+        loss.backward()
+        # 6 in the forward (2 encoder, 2 self, 2 cross), 6 in the remat recompute
+        check(FA.flash_attention.launches == 12,
+              f"{FA.flash_attention.launches} kernel launches in the cut's loss and gradient, not 12")
+        grads = {key: p.grad for key, p in MC.tree_items(pg)}
+        for p in MC.tree_leaves(pg):
+            p.grad = None
+        real = KO.flash_attention
+        KO.flash_attention = lambda q, k, v, *, causal=True, window=0, kv_valid=None: KR.attention_route(
+            q, k, v, causal=causal, window=window, kv_valid=kv_valid)
+        try:
+            ref_loss = WH.loss_fn(dataclasses.replace(cut, act_dtype="float32"), pg, batch)
+            ref_loss.backward()
+        finally:
+            KO.flash_attention = real
+    loss, ref_loss = float(loss.detach()), float(ref_loss.detach())
+    check(np.isfinite(loss) and all(bool(torch.isfinite(g).all()) for g in grads.values()),
+          "the cut's loss or gradient is not finite")
+    leaf_cos = {key: cos_rel(torch, grads[key], p.grad)[0] for key, p in MC.tree_items(pg)}
+    least = min(leaf_cos, key=leaf_cos.get)
+    ws["grad"] = {"loss": loss, "loss_f32": ref_loss, "loss_rel": abs(loss - ref_loss) / abs(ref_loss),
+                  "least_cos": leaf_cos[least], "least_leaf": least, "leaves": len(leaf_cos)}
+    print(f"{WSP_ARCH} 2 + 2 layers, 2 x {WSP_T} over 2 x {cfg.enc_seq} frames, bf16 through the kernel "
+          f"(FlashAttentionFn: non-causal encoder, Tq != Tk cross): loss {loss:.6f} against {ref_loss:.6f} in float32 "
+          f"through the plain route (relative {ws['grad']['loss_rel']:.3g}); least gradient cosine "
+          f"{leaf_cos[least]:.6f} ({least}; limit {STEP_GRAD_COS}) over {len(leaf_cos)} leaves")
+    check(leaf_cos[least] >= STEP_GRAD_COS, f"the cut's {least} gradient has cosine {leaf_cos[least]}")
+    ws["peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"{WSP_ARCH}: peak max_memory_allocated {ws['peak_bytes'] / 2**30:.2f} GiB on {smi}")
+    del params, model, pg, grads, batch, p2, frames, tokens, enc_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["fa_err"] = max(errs)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"whisper and pixtral phase: {out['seconds']:.1f}s on {smi}")
     return out
 
 
@@ -4264,7 +4717,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- the launchers of phases 16 and 18 at the reduced configs, in the
+    # -- the launchers of phases 16, 18 and 19 at the reduced configs, in the
     # background while phase 17's untimed work runs; phase 17 joins them
     # beside its own before its first timing
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
@@ -4281,7 +4734,7 @@ def main() -> int:
          and f"[serve] restored step 3 from {ck}" in lines and bool(served.match(lines[-1]))),
         *((f"python -m repro_torch.launch.serve --arch {arch} --reduced",
            [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--reduced"],
-           lambda lines: bool(served.match(lines[-1]))) for arch in (REC_RWKV, REC_JAMBA)),
+           lambda lines: bool(served.match(lines[-1]))) for arch in (REC_RWKV, REC_JAMBA, WSP_ARCH, PIX_ARCH)),
     ])
 
     # -- 17. the MoE family: llama4 scout and maverick at their published widths
@@ -4296,6 +4749,13 @@ def main() -> int:
     with torch.no_grad():  # inference: no graph
         rec = recurrent_phase(torch, dev, src, smi)
     launches["recurrent"] = rec["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 19. whisper and pixtral whole at their published widths ----------------
+    with torch.no_grad():  # inference: no graph (the gradient check enables its own)
+        encdec = encdec_vlm_phase(torch, dev, src, smi)
+    launches["encdec_vlm"] = {"flash_attention": sum(encdec["launches"].values())}
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4349,9 +4809,14 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:92", "launches": total["flash_attention"],
          "launches_by_path": {path: n["flash_attention"] for path, n in launches.items() if "flash_attention" in n},
-         "max_abs_err": max(lm["fa_err"], moe["fa_err"]), "ms": fa8k["ms"], "plain_ms": fa8k["plain_ms"], "bound_ms": fa8k["bound_ms"],
+         "max_abs_err": max(lm["fa_err"], moe["fa_err"], encdec["fa_err"]), "ms": fa8k["ms"], "plain_ms": fa8k["plain_ms"],
+         "bound_ms": fa8k["bound_ms"],
          "bound_by": "bytes" if fa8k["bytes"] / HBM_BYTES_PER_S >= fa8k["ops"] / BF16_OPS_PER_S else "operations",
-         "library_ms": fa8k["library_ms"]},
+         "library_ms": fa8k["library_ms"],
+         # phase 19's layers: pixtral's at D = 160, whisper's encoder and cross attention
+         "shapes": [{k: r[k] for k in ("what", "B", "H", "Hkv", "Tq", "Tk", "D", "causal", "max_abs_err", "ms",
+                                      "plain_ms", "bound_ms", "bound_by", "library_ms")} for r in encdec["rows"]],
+         "launches_phase19": encdec["launches"]},
         # TPC-H SF 1's largest dictionary: 6,000,000 lineitem probes into / a build of 1,500,000 orderkeys
         entry("hash_probe", "src/repro_torch/kernels/csrc/hash_probe.cu", "src/repro/kernels/hash_probe.py:75",
               [inst["rows"]["hash_probe"]], 0.0, None),
@@ -4394,7 +4859,9 @@ def main() -> int:
                       "train": {k: v for k, v in train.items() if k != "profile"},
                       "moe": {k: ({kk: vv for kk, vv in v.items() if kk != "profile"} if isinstance(v, dict) else v)
                               for k, v in moe.items()},
-                      "recurrent": {k: v for k, v in rec.items() if k not in ("rwkv", "jamba")}}))
+                      "recurrent": {k: v for k, v in rec.items() if k not in ("rwkv", "jamba")},
+                      "encdec_vlm": {k: ({kk: vv for kk, vv in v.items() if kk != "profile"} if isinstance(v, dict) else v)
+                                     for k, v in encdec.items()}}))
     print(f"chip_smoke: {time.perf_counter() - START:.1f}s in all on {smi}")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,9 @@
 """Per-architecture configs (the twin of ``repro.configs``).
 
-Each ported module exports ``CONFIG: ArchConfig``; ``get(name)`` resolves
-ids with dashes/dots normalized.  The dense decoders, the MoE family
-(llama4), rwkv6 (ssm) and jamba (hybrid) are ported; an architecture of
-another family raises ``NotImplementedError`` until its slice lands
-(``ROADMAP.md``).
+Each module exports ``CONFIG: ArchConfig``; ``get(name)`` resolves ids with
+dashes/dots normalized.  Every architecture of the reference is ported: the
+dense decoders, the MoE family (llama4), rwkv6 (ssm), jamba (hybrid),
+whisper (audio, an encoder-decoder) and pixtral (vlm).
 """
 from importlib import import_module
 
@@ -23,20 +22,10 @@ _ALIASES = {
 
 ARCH_IDS = tuple(_ALIASES)
 
-# the families whose models are not ported yet, by module
-_NOT_PORTED = {
-    "whisper_large_v3": "audio",
-    "pixtral_12b": "vlm",
-}
-
-#: the architectures this package can build
-PORTED_IDS = tuple(a for a, m in _ALIASES.items() if m not in _NOT_PORTED)
+#: the architectures this package can build (all of the reference's)
+PORTED_IDS = ARCH_IDS
 
 
 def get(name: str):
     mod = _ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
-    if mod in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name}: the {_NOT_PORTED[mod]} family is not ported to repro_torch yet (ROADMAP.md)"
-        )
     return import_module(f"repro_torch.configs.{mod}").CONFIG

@@ -15,19 +15,24 @@
 //
 // Which kernel serves which (dtype, D):
 //
-//   bfloat16, D = 64 or 128 (every dense config of the port): attn_wgmma_kernel.
+//   bfloat16, D = 64, 128 or 160 (every config of the port): attn_wgmma_kernel.
 //     A block of 384 threads owns 128 query rows: warpgroup 0 is the producer
 //     (one thread issues TMA loads; the warpgroup gives its registers back
 //     with setmaxnreg), warpgroups 1 and 2 each own 64 rows.  The producer
-//     brings the Q tile in once and K and V tiles of 128 keys into a
-//     two-stage ring in shared memory, through TMA (cp.async.bulk.tensor) on
+//     brings the Q tile in once and K and V tiles of BK keys (128 at D = 64
+//     and 128) into a two-stage ring in shared memory, through TMA (cp.async.bulk.tensor) on
 //     rank-4 maps over (D, T, head, batch) with the caller's strides, so a
 //     head split of a projection needs no copy and rows past Tq or Tk are
 //     filled with zeros.  Boxes are 64 columns (128 bytes) wide in 128-byte
-//     swizzle, so a D = 128 tile is two boxes.  mbarriers carry the ring: a
-//     full barrier per stage for K and one for V (TMA's transaction count),
+//     swizzle, so a D = 128 tile is two boxes.  D = 160 (pixtral) takes
+//     three boxes, 192 columns, of which TMA fills the 32 past D with zeros:
+//     at BK = 128 the Q tile and two stages of K and V would need 240 KB, over
+//     the 227 KB a block may have, so D = 160 runs BK = 64 keys a stage (144
+//     KB).  Its S = Q K^T stops at column 160 (10 k16 steps); its O += P V is
+//     one m64n192 wgmma whose last 32 columns are zeros and never stored.
+//     mbarriers carry the ring: a full barrier per stage for K and one for V (TMA's transaction count),
 //     an empty barrier per stage that every consumer warp arrives on.
-//     S = Q K^T is wgmma m64n128k16 with both operands in shared memory (K
+//     S = Q K^T is wgmma m64nBKk16 with both operands in shared memory (K
 //     is [keys, D], K-major); O += P V is wgmma with P from registers (the
 //     m64 accumulator layout of S is the A-fragment layout, so p packs to
 //     bf16 in place) and V from shared memory with the transpose bit (V is
@@ -106,15 +111,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // ---------------------------------------------------------------------------
 namespace wg {
 
-constexpr int BQ = 128, BK = 128, STAGES = 2, THREADS = 384;
+constexpr int BQ = 128, STAGES = 2, THREADS = 384;
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 
 template <int D>
 struct Layout {  // byte offsets from a 1024-byte aligned base
+  static constexpr int BK = D > 128 ? 64 : 128;  // keys a stage: 227 KB hold no 128-key stages at D = 160
+  static constexpr int BOXES = (D + 63) / 64;     // 64-column boxes a row
+  static constexpr int DP = 64 * BOXES;           // columns staged: D, or 192 at D = 160 (zeros past D)
   static constexpr int Q_BOX = BQ * 128;  // one 64-column box of the Q tile
   static constexpr int KV_BOX = BK * 128;
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;  // one stage of K (or of V)
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;  // one stage of K (or of V)
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
@@ -209,6 +217,23 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 64] = A[64 x 16] B[16 x 64] (+ D when accumulate), A and B from
+// shared memory (S at BK = 64)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 128] += A[64 x 16] (registers) B[16 x 128] (shared memory, transposed)
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -245,6 +270,31 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 192] += A[64 x 16] (registers) B[16 x 192] (shared memory, transposed):
+// P V at D = 160, whose V tile is three boxes, the last 32 columns zeros
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // 2^x on the special-function unit (flush-to-zero; -inf gives 0)
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -255,6 +305,7 @@ __device__ __forceinline__ float ex2(float x) {
 // The key tiles [j_lo, j_hi) that a block of `rows` query rows from key
 // position row0 visits: every tile that tile_class does not skip (causality
 // bounds the last, the window the first).
+template <int BK>
 __device__ __forceinline__ void visited_tiles(int row0, int rows, const Params& p, int& j_lo, int& j_hi) {
   const int last = p.causal ? min(p.Tk - 1, row0 + rows - 1) : p.Tk - 1;
   j_hi = last < 0 ? 0 : last / BK + 1;
@@ -266,6 +317,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     attn_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, const Params p) {
   using L = Layout<D>;
+  constexpr int BK = L::BK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base, k_s = base + L::K_OFF, v_s = base + L::V_OFF, bars = base + L::BAR_OFF;
@@ -279,7 +331,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int tile_row0 = qt * BQ;
   const int row_first = tile_row0 + p.Tk - p.Tq;  // key position of the tile's first row
   int j_lo, j_hi;
-  visited_tiles(row_first, BQ, p, j_lo, j_hi);
+  visited_tiles<BK>(row_first, BQ, p, j_lo, j_hi);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -299,18 +351,18 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, L::Q_BYTES);
 #pragma unroll
-      for (int x = 0; x < D / 64; ++x) tma_load(q_s + x * L::Q_BOX, &tq, q_full, 64 * x, tile_row0, h, b);
+      for (int x = 0; x < L::BOXES; ++x) tma_load(q_s + x * L::Q_BOX, &tq, q_full, 64 * x, tile_row0, h, b);
       const int hk = h / p.group;
       for (int j = j_lo, it = 0; j < j_hi; ++j, ++it) {
         const int s = it % STAGES;
         mbar_wait(empty(s), ((it / STAGES) & 1) ^ 1);  // a fresh barrier passes parity 1
         mbar_expect_tx(k_full(s), L::KV_BYTES);
 #pragma unroll
-        for (int x = 0; x < D / 64; ++x)
+        for (int x = 0; x < L::BOXES; ++x)
           tma_load(k_s + s * L::KV_BYTES + x * L::KV_BOX, &tk, k_full(s), 64 * x, j * BK, hk, b);
         mbar_expect_tx(v_full(s), L::KV_BYTES);
 #pragma unroll
-        for (int x = 0; x < D / 64; ++x)
+        for (int x = 0; x < L::BOXES; ++x)
           tma_load(v_s + s * L::KV_BYTES + x * L::KV_BOX, &tv, v_full(s), 64 * x, j * BK, hk, b);
       }
     }
@@ -324,9 +376,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     const float sl2 = p.scale * 1.4426950408889634f;
     const uint32_t q_w = q_s + cw * 64 * 128;
 
-    float o[D / 2];
+    float o[L::DP / 2];  // past D / 2: the zero columns of a D = 160 tile, never stored
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < L::DP / 2; ++i) o[i] = 0.f;
     float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // rows g and g + 8; l is this thread's part
 
     mbar_wait(q_full, 0);
@@ -337,7 +389,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int cls = tile_class(rw, 64, c0, BK, p);  // uniform over the warpgroup
       mbar_wait(k_full(s), ph);
       if (cls != SKIP) {
-        // S = Q K^T, 64 x 128 float32
+        // S = Q K^T, 64 x BK float32 (the k16 steps stop at D)
         float sc[BK / 2];
         wgmma_fence();
 #pragma unroll
@@ -394,14 +446,14 @@ __global__ void __launch_bounds__(THREADS, 1)
         l0 = l0 * a0 + rs0;
         l1 = l1 * a1 + rs1;
 #pragma unroll
-        for (int i = 0; i < D / 2; i += 4) {
+        for (int i = 0; i < L::DP / 2; i += 4) {
           o[i] *= a0;
           o[i + 1] *= a0;
           o[i + 2] *= a1;
           o[i + 3] *= a1;
         }
 
-        // O += P V
+        // O += P V, one wgmma of N = DP a k16 step
         mbar_wait(v_full(s), ph);
         fence_regs(o);
         wgmma_fence();
@@ -716,7 +768,7 @@ EncodeTiled encode_tiled() {
 
 // A rank-4 map over (D, T, heads, batch) of bf16 with the given element
 // strides; boxes of 64 columns x `rows` rows in 128-byte swizzle.  Rows past
-// T read as zeros.  A dimension of extent 1 gets a harmless stride (its
+// T, and columns past D (the third box of a D = 160 row), read as zeros.  A dimension of extent 1 gets a harmless stride (its
 // coordinate is always 0), so an expanded view's stride 0 is never passed.
 bool make_map(CUtensorMap* map, const void* ptr, int D, int T, int heads, int batch, long long st, long long sh,
               long long sb, int rows) {
@@ -735,10 +787,11 @@ bool make_map(CUtensorMap* map, const void* ptr, int D, int T, int heads, int ba
 
 template <int D>
 int launch_wgmma(const Params& p, int B, int H, int Hkv, cudaStream_t s) {
+  constexpr int BK = wg::Layout<D>::BK;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, p.q, D, p.Tq, H, B, p.sqt, p.sqh, p.sqb, wg::BQ) ||
-      !make_map(&tk, p.k, D, p.Tk, Hkv, B, p.skt, p.skh, p.skb, wg::BK) ||
-      !make_map(&tv, p.v, D, p.Tk, Hkv, B, p.svt, p.svh, p.svb, wg::BK))
+      !make_map(&tk, p.k, D, p.Tk, Hkv, B, p.skt, p.skh, p.skb, BK) ||
+      !make_map(&tv, p.v, D, p.Tk, Hkv, B, p.svt, p.svh, p.svb, BK))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = wg::Layout<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(wg::attn_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -757,7 +810,7 @@ int launch_f32(const Params& p, int B, int H, cudaStream_t s) {
 
 // ptrs: q, k, v, o.  ints: B, H, Hkv, Tq, Tk, D, causal, window, dtype
 // (0 bfloat16, 1 float32), then the (batch, head, row) strides in elements
-// of q, k, v and o.  bfloat16 at D = 64 or 128 takes the wgmma kernel,
+// of q, k, v and o.  bfloat16 at D = 64, 128 or 160 takes the wgmma kernel,
 // bfloat16 at D = 16 the mma.sync kernel, float32 the FMA kernel.  Returns
 // the cudaGetLastError() of the launch (cudaErrorInvalidValue for a shape
 // no kernel takes or a tensor map the driver refuses).
@@ -787,6 +840,7 @@ extern "C" int flash_attention_launch(void** ptrs, long long* ints, void* stream
         return (int)cudaGetLastError();
       case 64: return launch_wgmma<64>(p, B, H, Hkv, s);
       case 128: return launch_wgmma<128>(p, B, H, Hkv, s);
+      case 160: return launch_wgmma<160>(p, B, H, Hkv, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -794,12 +848,13 @@ extern "C" int flash_attention_launch(void** ptrs, long long* ints, void* stream
     case 16: return launch_f32<16>(p, B, H, s);
     case 64: return launch_f32<64>(p, B, H, s);
     case 128: return launch_f32<128>(p, B, H, s);
+    case 160: return launch_f32<160>(p, B, H, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // The dynamic shared memory a block of the wgmma kernel asks for at head
-// dim D (64 or 128), or -1.
+// dim D (64, 128 or 160), or -1.
 extern "C" int flash_attention_wgmma_smem(int D) {
-  return D == 64 ? wg::Layout<64>::SMEM : D == 128 ? wg::Layout<128>::SMEM : -1;
+  return D == 64 ? wg::Layout<64>::SMEM : D == 128 ? wg::Layout<128>::SMEM : D == 160 ? wg::Layout<160>::SMEM : -1;
 }

@@ -8,12 +8,15 @@ rows, and visits only the key tiles that :func:`tile_class` does not skip.
 Which kernel serves which ``(dtype, D)`` (:data:`TILES` gives each one's
 query and key tile):
 
-* bfloat16 at D = 64 and 128 (every dense config of the port): 128 × 128
-  tiles; a producer warpgroup loads Q once and K/V into a two-stage
-  shared-memory ring with TMA (tensor maps built in the library through the
-  driver's ``cuTensorMapEncodeTiled``), two consumer warpgroups compute
-  ``S = Q Kᵀ`` and ``O += P V`` with ``wgmma`` (P from registers), and only
-  the tiles :func:`tile_class` calls masked test each element;
+* bfloat16 at D = 64, 128 and 160 (every config of the port): 128 × 128
+  tiles (128 × 64 at D = 160); a producer warpgroup loads Q once and K/V
+  into a two-stage shared-memory ring with TMA (tensor maps built in the
+  library through the driver's ``cuTensorMapEncodeTiled``), two consumer
+  warpgroups compute ``S = Q Kᵀ`` and ``O += P V`` with ``wgmma`` (P from
+  registers), and only the tiles :func:`tile_class` calls masked test each
+  element.  At D = 160 (pixtral) a row is staged as three 64-column boxes
+  whose last 32 columns TMA fills with zeros; 128-key stages of that width
+  would not fit a block's 227 KB of shared memory, 64-key ones take 144 KB;
 * bfloat16 at D = 16 (the reduced test models): ``mma.sync``, 64 × 64 tiles;
 * float32: plain FMA, 32 × 16 tiles, so that its sums stay float32.
 
@@ -55,14 +58,15 @@ from . import build
 from . import ref
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 64, 128)
+HEAD_DIMS = (16, 64, 128, 160)
 #: (query rows, key columns) of a block's tile, per (dtype, head dim)
-#: (``csrc/flash_attention.cu``: the wgmma kernel at bf16 D = 64 and 128,
-#: ``mma.sync`` at bf16 D = 16, FMA in float32)
+#: (``csrc/flash_attention.cu``: the wgmma kernel at bf16 D = 64, 128 and
+#: 160, ``mma.sync`` at bf16 D = 16, FMA in float32)
 TILES = {
     (torch.bfloat16, 16): (64, 64),
     (torch.bfloat16, 64): (128, 128),
     (torch.bfloat16, 128): (128, 128),
+    (torch.bfloat16, 160): (128, 64),
     **{(torch.float32, d): (32, 16) for d in HEAD_DIMS},
 }
 #: the wgmma kernel's consumer warpgroup: it classifies each key tile for its own rows

@@ -1,5 +1,5 @@
 """Shared model components: norms, rotary embeddings, attention, MLPs, the
-loss (the twin of the parts of ``repro.models.common`` that the decoder uses).
+loss (the twin of ``repro.models.common``).
 
 Parameters are plain nested dicts of tensors, as in the reference.  A
 projection weight is stored in ``nn.Linear``'s ``[d_out, d_in]`` layout and
@@ -146,38 +146,48 @@ def attention(
     causal: bool = True,
     window: int = 0,
     rope_theta: float = 10000.0,
+    use_rope: bool = True,
     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (k, v) [B, Hkv, M, hd]
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (k, v) [B, H, Te, hd]
     kv_valid=None,  # count of live kv slots (a 0-d tensor or an int)
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Returns (out [B, T, d], new_cache).  Decode: T=1, the cache holds the
     history.  The new K/V are written into the cache tensors in place, at
     slot ``positions[0] % M`` (a ring; the reference returns updated
-    arrays), and ``new_cache`` is those same tensors.  The reference's
-    cross-attention and rope-less variants (whisper) wait for their slice."""
+    arrays), and ``new_cache`` is those same tensors.  Cross attention
+    (whisper's decoder): ``cross_kv`` gives K and V (the encoder's, projected
+    by the caller), no cache is written and nothing is rotated; pass
+    ``causal=False``.  ``use_rope=False`` (whisper, whose positions are
+    sinusoids added to the embeddings) rotates neither q nor k."""
     B, T, _ = x.shape
     q = F.linear(x, p["wq"], p.get("bq")).view(B, T, n_heads, head_dim).transpose(1, 2)
-    k = F.linear(x, p["wk"], p.get("bk")).view(B, T, n_kv, head_dim).transpose(1, 2)
-    v = F.linear(x, p["wv"], p.get("bv")).view(B, T, n_kv, head_dim).transpose(1, 2)
-    pos = positions if positions is not None else torch.arange(T, device=x.device)
-    k = rope(k, pos, rope_theta)
     new_cache = None
-    if cache is not None:
-        ck, cv = cache
-        M = ck.shape[2]
-        cur_len = positions[0] if positions is not None else torch.tensor(M, device=x.device)
-        # the write starts at len % M, clamped so that T slots fit (as
-        # dynamic_update_slice clamps); softmax does not care about slot order
-        start = torch.clamp(torch.remainder(cur_len.long(), M), max=M - T)
-        idx = start + torch.arange(T, device=x.device)
-        ck.index_copy_(2, idx, k.to(ck.dtype))
-        cv.index_copy_(2, idx, v.to(cv.dtype))
-        k, v = ck, cv
-        new_cache = (ck, cv)
-    if positions is not None:
-        qpos = positions
+    if cross_kv is not None:
+        k, v = cross_kv
     else:
-        qpos = torch.arange(T, device=x.device) + (k.shape[2] - T if cache is not None else 0)
-    q = rope(q, qpos, rope_theta)
+        k = F.linear(x, p["wk"], p.get("bk")).view(B, T, n_kv, head_dim).transpose(1, 2)
+        v = F.linear(x, p["wv"], p.get("bv")).view(B, T, n_kv, head_dim).transpose(1, 2)
+        if use_rope:
+            pos = positions if positions is not None else torch.arange(T, device=x.device)
+            k = rope(k, pos, rope_theta)
+        if cache is not None:
+            ck, cv = cache
+            M = ck.shape[2]
+            cur_len = positions[0] if positions is not None else torch.tensor(M, device=x.device)
+            # the write starts at len % M, clamped so that T slots fit (as
+            # dynamic_update_slice clamps); softmax does not care about slot order
+            start = torch.clamp(torch.remainder(cur_len.long(), M), max=M - T)
+            idx = start + torch.arange(T, device=x.device)
+            ck.index_copy_(2, idx, k.to(ck.dtype))
+            cv.index_copy_(2, idx, v.to(cv.dtype))
+            k, v = ck, cv
+            new_cache = (ck, cv)
+    if use_rope and cross_kv is None:
+        if positions is not None:
+            qpos = positions
+        else:
+            qpos = torch.arange(T, device=x.device) + (k.shape[2] - T if cache is not None else 0)
+        q = rope(q, qpos, rope_theta)
 
     out = kops.flash_attention(q, k, v, causal=causal and cache is None, window=window, kv_valid=kv_valid)
     out = out.transpose(1, 2).reshape(B, T, n_heads * head_dim)
@@ -185,7 +195,7 @@ def attention(
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLPs
 # ---------------------------------------------------------------------------
 
 
@@ -199,6 +209,22 @@ def swiglu_init(generator, d_model: int, d_ff: int, device) -> Params:
 
 def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
     return F.linear(F.silu(F.linear(x, p["wg"])) * F.linear(x, p["wi"]), p["wo"])
+
+
+def gelu_mlp_init(generator, d_model: int, d_ff: int, device) -> Params:
+    return {
+        "wi": dense_init(generator, d_model, d_ff, device),
+        "bi": torch.zeros((d_ff,), dtype=torch.float32, device=device),
+        "wo": dense_init(generator, d_ff, d_model, device),
+        "bo": torch.zeros((d_model,), dtype=torch.float32, device=device),
+    }
+
+
+def gelu_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """``gelu(x Wi + bi) Wo + bo`` with the tanh approximation of gelu, as
+    ``jax.nn.gelu`` computes it by default (``F.gelu``'s default is the
+    exact erf form)."""
+    return F.linear(F.gelu(F.linear(x, p["wi"], p["bi"]), approximate="tanh"), p["wo"], p["bo"])
 
 
 # ---------------------------------------------------------------------------

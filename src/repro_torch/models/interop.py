@@ -1,11 +1,14 @@
 """The reference's LM parameters as the port's.
 
 ``params_from_reference(cfg, tree)`` takes the parameter pytree of
-``repro.models.lm`` (or, by ``cfg.model_kind``, ``rwkv6`` / ``jamba``) as
-numpy arrays (layers stacked on a leading ``[L, ...]`` axis, jamba's
-periods on ``[P, ...]``, projections laid out ``[d_in, d_out]`` for ``x @
-W``) and returns the port's parameters: a list of layers (of periods),
-projections transposed to ``nn.Linear``'s ``[d_out, d_in]``.  rwkv's
+``repro.models.lm`` (or, by ``cfg.model_kind``, ``whisper`` / ``rwkv6`` /
+``jamba``) as numpy arrays (layers stacked on a leading ``[L, ...]`` axis,
+whisper's ``enc_layers`` / ``dec_layers`` each so, jamba's periods on
+``[P, ...]``, projections laid out ``[d_in, d_out]`` for ``x @ W``) and
+returns the port's parameters: a list of layers (of periods) for each
+stack, projections transposed to ``nn.Linear``'s ``[d_out, d_in]``
+(whisper's ``self_attn`` and ``cross_attn`` as ``attn``, its GELU MLP's
+``wi`` / ``wo``; the MLP biases ``bi`` / ``bo`` and the layernorms kept).  rwkv's
 ``mu``, ``w0``, ``u`` and layernorms, and mamba's ``conv_w [K, d_in]``,
 ``conv_b``, ``dt_bias``, ``A_log`` and ``D`` are kept as they are.  A MoE
 layer's router is transposed to ``[E, d]`` and
@@ -30,6 +33,8 @@ from .config import ArchConfig
 # the leaves transposed, by the block that holds them
 _TRANSPOSED = {
     "attn": {"wq", "wk", "wv", "wo"},
+    "self_attn": {"wq", "wk", "wv", "wo"},
+    "cross_attn": {"wq", "wk", "wv", "wo"},
     "mlp": {"wi", "wg", "wo"},
     "moe": {"router"},
     "shared": {"wi", "wg", "wo"},
@@ -53,8 +58,9 @@ def _tensor(a, device, transpose: bool = False) -> torch.Tensor:
 # trees come with their keys sorted, and the order of the leaves is the
 # order in which the optimizer sums them.  A key not named keeps its place
 _ORDER = {k: r for r, k in enumerate((
-    "embed", "layers", "final_norm", "head", "attn_norm", "mlp_norm", "attn", "mlp", "moe",
-    "router", "wi", "wg", "wq", "wk", "wv", "wo", "bq", "bk", "bv", "shared"))}
+    "embed", "layers", "enc_layers", "dec_layers", "final_norm", "enc_norm", "dec_norm", "head",
+    "attn_norm", "self_norm", "cross_norm", "mlp_norm", "attn", "self_attn", "cross_attn", "mlp", "moe",
+    "router", "wi", "bi", "wg", "wq", "wk", "wv", "wo", "bo", "bq", "bk", "bv", "shared"))}
 
 
 def _ordered(node) -> list:
@@ -76,11 +82,14 @@ def _block(node, dev, i=None, transposed=frozenset()) -> Params:
 def params_from_reference(cfg: ArchConfig, tree, device=None) -> Params:
     dev = resolve_device(device)
     if cfg.model_kind == "jamba":
-        stack, n = "periods", cfg.n_layers // cfg.attn_period
+        stacks = {"periods": cfg.n_layers // cfg.attn_period}
+    elif cfg.model_kind == "encdec":
+        stacks = {"enc_layers": cfg.enc_layers, "dec_layers": cfg.n_layers}
     else:
-        stack, n = "layers", cfg.n_layers
-    out = _block({k: v for k, v in tree.items() if k != stack}, dev)
-    out[stack] = [_block(tree[stack], dev, i) for i in range(n)]
+        stacks = {"layers": cfg.n_layers}
+    out = _block({k: v for k, v in tree.items() if k not in stacks}, dev)
+    for stack, n in stacks.items():
+        out[stack] = [_block(tree[stack], dev, i) for i in range(n)]
     return {k: out[k] for k in _ordered(out)}
 
 

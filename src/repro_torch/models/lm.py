@@ -1,5 +1,7 @@
-"""Decoder-only LM, dense GQA (granite / qwen / llama) and uniform MoE
-(llama4 scout / maverick) — the twin of ``repro.models.lm``.
+"""Decoder-only LM, dense GQA (granite / qwen / llama / the pixtral
+backbone) and uniform MoE (llama4 scout / maverick) — the twin of
+``repro.models.lm``.  pixtral's patch embeddings (its vision frontend is a
+stub in the reference too) are put in front of the embedded tokens.
 
 The reference scans a stacked layer body under remat; the port runs
 eagerly, so the layers are a list walked by a plain loop, and where a
@@ -13,7 +15,8 @@ it under ``torch.no_grad()``.
 
 Entry points:
     init(cfg, generator, device, dtype)         -> params
-    forward(cfg, params, tokens, window, remat) -> (logits, aux)   (train / prefill)
+    forward(cfg, params, tokens, window, remat, patch_embeds)
+                                                -> (logits, aux)   (train / prefill)
     loss_fn(cfg, params, batch)                 -> scalar
     init_cache(cfg, batch, cache_len, fill_len) -> decode cache
     decode_step(cfg, params, cache, tok)        -> (logits, cache)
@@ -42,7 +45,8 @@ def act_dtype(cfg: ArchConfig) -> torch.dtype:
 def _decoder_only(cfg: ArchConfig) -> None:
     if cfg.model_kind != "decoder":
         raise NotImplementedError(
-            f"{cfg.name}: only decoders (dense and MoE) are ported to repro_torch (the other kinds: ROADMAP.md)"
+            f"{cfg.name}: models.lm builds decoders only; a {cfg.model_kind!r} model has a module of its own "
+            "(models.registry.get_model)"
         )
 
 
@@ -129,15 +133,19 @@ def _layer_apply(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.T
 
 
 def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor, window: int = 0,
-            remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits [B, T, padded_vocab], aux[3]); ``aux`` is the
+            remat: bool = True, patch_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits [B, T_total, padded_vocab], aux[3]); ``aux`` is the
     reference's MoE terms (load balance, router z, drop fraction) summed
-    over the layers, zeros for a dense model.  Each layer's parameters are
-    cast to the activation dtype inside its period, as the reference casts
-    inside its remat body; a checkpointed period returns its aux beside its
-    output."""
+    over the layers, zeros for a dense model.  ``patch_embeds [B, Nv, d]``
+    (pixtral) go in front of the embedded tokens, cast to the activation
+    dtype, and the positions run over the whole ``Nv + T``.  Each layer's
+    parameters are cast to the activation dtype inside its period, as the
+    reference casts inside its remat body; a checkpointed period returns its
+    aux beside its output."""
     adt = act_dtype(cfg)
     x = common.embed(params["embed"], tokens).to(adt)
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(adt), x], dim=1)
     T = x.shape[1]
     positions = torch.arange(T, device=x.device)
     period = max(1, cfg.remat_period)
@@ -171,11 +179,13 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]) -> 
     """Mean next-token cross entropy of ``batch["labels"]`` (where
     ``batch["loss_mask"]``, if given), in float32; the padded vocabulary's
     tail is masked out.  A MoE model adds ``0.01·load_balance +
-    0.001·router_z`` (summed over its layers), as the reference; a batch
-    with ``patches`` (pixtral) raises."""
-    if batch.get("patches") is not None:
-        raise NotImplementedError(f"{cfg.name}: patch embeddings (pixtral) are not ported to repro_torch (ROADMAP.md)")
-    logits, aux = forward(cfg, params, batch["tokens"])
+    0.001·router_z`` (summed over its layers), as the reference.  With
+    ``batch["patches"]`` (pixtral) the patches go in front of the tokens and
+    their ``Nv`` logits are dropped before the loss."""
+    patches = batch.get("patches")
+    logits, aux = forward(cfg, params, batch["tokens"], patch_embeds=patches)
+    if patches is not None:
+        logits = logits[:, patches.shape[1]:]
     if cfg.padded_vocab != cfg.vocab:
         live = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
         logits = torch.where(live, logits, -1e30)

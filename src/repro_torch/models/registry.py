@@ -1,12 +1,14 @@
 """Model registry (the twin of ``repro.models.registry``): a uniform API over
-the model kinds, of which the port has the decoder (dense and MoE), rwkv
-(``ssm``) and jamba (``hybrid``).
+the reference's four model kinds: the decoder (dense, MoE, and pixtral's
+patch-prefixed ``vlm``), encdec (whisper), rwkv (``ssm``) and jamba
+(``hybrid``).
 
 ``get_model(cfg, device)`` returns a ``Model`` with:
 
     init(generator, dtype)          -> params (drawn in float32, cast to dtype as drawn)
     init_shapes()                   -> params on the ``meta`` device (shapes, no data)
-    forward(params, tokens)         -> (logits, aux)  (train / prefill shapes)
+    forward(params, tokens, frames=, patches=)
+                                    -> (logits, aux)  (train / prefill shapes)
     loss_fn(params, batch)          -> scalar          (train shapes)
     init_cache(batch, cache_len)    -> cache           (a full cache, as the reference)
     decode_step(params, cache, tok) -> (logits, cache) (decode shapes)
@@ -28,6 +30,7 @@ from repro_torch.data.table import resolve_device
 from . import jamba as jamba_mod
 from . import lm as lm_mod
 from . import rwkv6 as rwkv6_mod
+from . import whisper as whisper_mod
 from .config import ArchConfig, ShapeSpec
 
 
@@ -45,8 +48,15 @@ class Model:
         without drawing the weights (a restore's ``like``)."""
         return self.mod.init(self.cfg, torch.Generator(), "meta")
 
-    def forward(self, params, tokens, window: int = 0, remat: bool = True):
-        return self.mod.forward(self.cfg, params, tokens, window=window, remat=remat)
+    def forward(self, params, tokens, window: int = 0, remat: bool = True, frames=None, patches=None):
+        """``frames`` (encdec: the stub frontend's ``[B, enc_seq, d]``) or
+        ``patches`` (vlm: ``[B, Nv, d]`` put in front of the tokens)."""
+        kw = {}
+        if frames is not None:
+            kw["frames"] = frames
+        if patches is not None:
+            kw["patch_embeds"] = patches
+        return self.mod.forward(self.cfg, params, tokens, window=window, remat=remat, **kw)
 
     def loss_fn(self, params, batch):
         return self.mod.loss_fn(self.cfg, params, batch)
@@ -67,26 +77,42 @@ class Model:
 
     def make_batch(self, shape: ShapeSpec, generator: torch.Generator) -> Dict[str, Any]:
         """Random inputs of ``shape``: a full cache and one token per
-        sequence for decode shapes, else ``tokens`` and ``labels``."""
+        sequence for decode shapes, else ``tokens`` and ``labels``, with
+        ``frames [B, enc_seq, d]`` for encdec and, where the config has
+        vision tokens, ``patches [B, min(vision_tokens, T // 2), d]`` in
+        front of ``T - Nv`` tokens (float32 normal · 0.02, as the
+        reference's)."""
+        cfg = self.cfg
         B, T = shape.global_batch, shape.seq_len
-        hi = max(2, self.cfg.vocab - 1)
+        hi = max(2, cfg.vocab - 1)
         if shape.kind == "decode":
             return {
                 "cache": self.init_cache(B, T),
                 "token": torch.randint(0, hi, (B,), generator=generator, device=self.device),
             }
-        return {
-            "tokens": torch.randint(0, hi, (B, T), generator=generator, device=self.device),
-            "labels": torch.randint(0, hi, (B, T), generator=generator, device=self.device),
-        }
+
+        def normal(*size):
+            return torch.randn(size, generator=generator, device=self.device) * 0.02
+
+        out = {}
+        if cfg.model_kind == "encdec":
+            out["frames"] = normal(B, cfg.enc_seq, cfg.d_model)
+        elif cfg.vision_tokens:
+            nv = min(cfg.vision_tokens, T // 2)
+            out["patches"] = normal(B, nv, cfg.d_model)
+            T -= nv
+        out["tokens"] = torch.randint(0, hi, (B, T), generator=generator, device=self.device)
+        out["labels"] = torch.randint(0, hi, (B, T), generator=generator, device=self.device)
+        return out
 
 
-_KIND_TO_MOD = {"decoder": lm_mod, "rwkv": rwkv6_mod, "jamba": jamba_mod}
+_KIND_TO_MOD = {"decoder": lm_mod, "encdec": whisper_mod, "rwkv": rwkv6_mod, "jamba": jamba_mod}
 
 
 def get_model(cfg: ArchConfig, device=None) -> Model:
     if cfg.model_kind not in _KIND_TO_MOD:
-        raise NotImplementedError(f"{cfg.name}: model kind {cfg.model_kind!r} is not ported yet (ROADMAP.md)")
+        raise NotImplementedError(f"{cfg.name}: model kind {cfg.model_kind!r} is none of the reference's "
+                                  f"{sorted(_KIND_TO_MOD)}")
     dev = resolve_device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available; pass device='cpu' to run the plain PyTorch path")

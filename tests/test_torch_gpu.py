@@ -45,7 +45,14 @@ at d_state 4, 8 and 16 against its twin (a carried state, T = 1, ragged
 time tiles and channel blocks, strided B / C), refuses what it does not take
 and training through it, and reduced rwkv6 and jamba forwards and decode
 steps on the card follow the CPU's, the scan kernel launched once a Mamba
-sub-layer.
+sub-layer.  The flash-attention kernel also runs pixtral's head dim 160
+(its layer at 2,048, unaligned, non-causal, Tq < Tk; the wgmma kernel over
+the same lengths as at D = 64 and 128, strided heads bit for bit) and
+whisper's encoder and cross shapes (1,500 frames; 448 and 1 queries over
+them); its gradient runs non-causal with Tq != Tk and at D = 160; a reduced
+whisper (encoder, decoder self and cross attention) and a reduced pixtral
+at D = 160 with patches forward on the card against the CPU, one launch an
+attention call, and whisper's decode launches once a layer a step.
 """
 import contextlib
 import dataclasses
@@ -80,8 +87,8 @@ from repro_torch.kernels import sorted_lookup as sl
 from repro_torch.kernels import segment_reduce as sr
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import selective_scan as ssk
-from repro_torch.models import common, jamba, lm, moe, rwkv6
-from repro_torch.models.registry import get_model_by_name
+from repro_torch.models import common, jamba, lm, moe, rwkv6, whisper
+from repro_torch.models.registry import get_model, get_model_by_name
 
 pytestmark = pytest.mark.gpu
 
@@ -566,6 +573,15 @@ FLASH_CASES = {
     "unaligned": (1, 1, 1, 50, 70, 16, True, 0),
     "masked_rows": (2, 4, 2, 100, 37, 64, True, 0),
     "tq_lt_tk": (1, 6, 3, 130, 515, 128, True, 0),
+    # pixtral's layer (D = 160) at 2,048 and unaligned, GQA 4:1, non-causal, Tq < Tk
+    "pixtral_2048": (1, 32, 8, 2048, 2048, 160, True, 0),
+    "d160_unaligned": (1, 8, 2, 1000, 1000, 160, True, 0),
+    "d160_cross": (2, 4, 1, 7, 1500, 160, False, 0),
+    # whisper: the encoder (non-causal over 1,500 frames) and cross attention
+    # of 448 decoder tokens and of one decode token over them
+    "whisper_encoder": (1, 20, 20, 1500, 1500, 64, False, 0),
+    "whisper_cross": (2, 20, 20, 448, 1500, 64, False, 0),
+    "whisper_cross_decode": (4, 20, 20, 1, 1500, 64, False, 0),
 }
 # float32: the same products summed in another order; bfloat16: the outputs
 # are rounded to bfloat16 (a step of 2^-8 just below 1), and a p that rounds
@@ -633,9 +649,10 @@ def test_flash_attention_kernel_reads_strided_heads(cuda, dtype):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-# the wgmma kernel (bfloat16, D = 64 and 128): lengths on both sides of the
-# 128-row tiles, Tq < Tk and Tq > Tk (rows that see no key) under causality,
-# windows of 40 and 200 (smaller and larger than a tile), and non-causal
+# the wgmma kernel (bfloat16, D = 64, 128 and 160): lengths on both sides of
+# the 128-row tiles (and D = 160's 64-key tiles), Tq < Tk and Tq > Tk (rows
+# that see no key) under causality, windows of 40 and 200 (smaller and larger
+# than a tile), and non-causal
 WGMMA_LENGTHS = (1, 127, 128, 129, 1000)
 WGMMA_CASES = (
     [(Tq, Tk, True, 0) for Tq in WGMMA_LENGTHS for Tk in WGMMA_LENGTHS]
@@ -644,7 +661,7 @@ WGMMA_CASES = (
 )
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 160])
 @pytest.mark.parametrize("Tq,Tk,causal,window", WGMMA_CASES)
 def test_flash_attention_wgmma_kernel_matches_plain(cuda, Tq, Tk, causal, window, D):
     g = torch.Generator(device=cuda).manual_seed(Tq * 31 + Tk + D + window)
@@ -662,7 +679,7 @@ def test_flash_attention_wgmma_kernel_matches_plain(cuda, Tq, Tk, causal, window
         assert not got[:, :, : Tq - Tk].any()
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 160])
 def test_flash_attention_wgmma_kernel_reads_strided_heads(cuda, D):
     """Heads split off a [B, T, H·D] projection (no copy) give, bit for bit,
     the result of contiguous inputs, through the tensor maps' strides."""
@@ -681,9 +698,10 @@ def test_flash_attention_wgmma_kernel_reads_strided_heads(cuda, D):
 
 
 def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
-    q = torch.zeros((1, 2, 8, 32), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):
-        fa.flash_attention(q, q, q)  # head dim 32
+    for D in (32, 96, 192):
+        q = torch.zeros((1, 2, 8, D), device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            fa.flash_attention(q, q, q)  # a head dim no kernel serves
     h = torch.zeros((1, 2, 8, 16), device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError):
         fa.flash_attention(h, h, h)  # float16
@@ -767,8 +785,9 @@ def test_moe_forward_on_card(cuda, monkeypatch):
 
 
 # (B, H, Hkv, T, D, window): GQA, MQA and a window on the dense route, and
-# above 2,048 keys on the chunked one
-GRAD_CASES = [(2, 4, 2, 100, 16, 0), (1, 4, 1, 129, 64, 0), (1, 2, 2, 200, 128, 40), (1, 4, 2, 2100, 64, 0)]
+# above 2,048 keys on the chunked one; pixtral's head dim 160
+GRAD_CASES = [(2, 4, 2, 100, 16, 0), (1, 4, 1, 129, 64, 0), (1, 2, 2, 200, 128, 40), (1, 4, 2, 2100, 64, 0),
+              (1, 8, 2, 300, 160, 0)]
 
 
 @pytest.mark.parametrize("case", GRAD_CASES)
@@ -1598,3 +1617,75 @@ def test_recurrent_forward_and_decode_on_card(cuda, arch, monkeypatch):
         w, tc = mod.decode_step(cfg, params, tc, toks[:, t])
         g, dc = mod.decode_step(cfg, dev_params, dc, toks[:, t].to(cuda))
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+# (B, H, Hkv, Tq, Tk, D): whisper's cross attention (non-causal, Tq != Tk:
+# decoder tokens and one decode token over the frames) and its encoder
+# (non-causal, unaligned), pixtral's head dim over more keys
+CROSS_GRAD_CASES = [(2, 4, 4, 48, 150, 64), (2, 4, 4, 1, 150, 64), (1, 4, 4, 300, 300, 64), (1, 4, 2, 33, 200, 160)]
+
+
+@pytest.mark.parametrize("case", CROSS_GRAD_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_noncausal_attention_gradient_on_card(cuda, case, dtype, monkeypatch):
+    """``FlashAttentionFn`` non-causal and with Tq != Tk: one launch, and dq,
+    dk, dv the plain route's within rounding of it in float32."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    B, H, Hkv, Tq, Tk, D = case
+    g = torch.Generator(device=cuda).manual_seed(Tq + Tk + D)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn((B, h, T, D), generator=g, device=cuda).to(dt).requires_grad_()
+               for h, T in ((H, Tq), (Hkv, Tk), (Hkv, Tk)))
+    d_out = torch.randn((B, H, Tq, D), generator=g, device=cuda).to(dt)
+    n = fa.flash_attention.launches
+    out = fa.FlashAttentionFn.apply(q, k, v, False, 0)
+    got = torch.autograd.grad(out, (q, k, v), d_out)
+    assert fa.flash_attention.launches == n + 1
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(ref.attention_route(qf, kf, vf, causal=False, window=0), (qf, kf, vf), d_out.float())
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == dt and a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        cos = float(torch.nn.functional.cosine_similarity(a.float().flatten(), b.flatten(), dim=0))
+        assert cos >= (0.999 if dtype == "bfloat16" else 1 - 1e-6), (name, cos)
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "pixtral-12b"])
+@pytest.mark.parametrize("act_dtype", ["float32", "bfloat16"])
+def test_encdec_and_vlm_forward_on_card(cuda, arch, act_dtype, monkeypatch):
+    """A reduced whisper (encoder, decoder self and cross attention: one
+    launch each a layer) and a reduced pixtral at head dim 160 with patches
+    in front (one launch a layer) on the card against the CPU's; whisper's
+    decode steps from a cache over ``encode(frames)`` launch the kernel once
+    a layer a step (cross attention; self attention takes the plain
+    ``kv_valid`` route)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    over = {"act_dtype": act_dtype} if arch.startswith("whisper") else {"act_dtype": act_dtype, "head_dim": 160,
+                                                                         "n_kv_heads": 2}
+    cpu = get_model_by_name(arch, reduced=True, device="cpu")
+    cfg = dataclasses.replace(cpu.cfg, **over)
+    mod = whisper if arch.startswith("whisper") else lm
+    params = mod.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=torch.Generator().manual_seed(1))
+    extra = torch.randn((2, cfg.enc_seq if arch.startswith("whisper") else cfg.vision_tokens, cfg.d_model),
+                        generator=torch.Generator().manual_seed(2))
+    kw = "frames" if arch.startswith("whisper") else "patches"
+    want, _ = get_model(cfg, device="cpu").forward(params, toks, **{kw: extra})
+    dev_params = common.tree_map(lambda t: t.to(cuda), params)
+    fa.flash_attention.launches = 0
+    got, _ = get_model(cfg, device=cuda).forward(dev_params, toks.to(cuda), **{kw: extra.to(cuda)})
+    torch.cuda.synchronize()
+    per_layer = (cfg.enc_layers + 2 * cfg.n_layers) if arch.startswith("whisper") else cfg.n_layers
+    assert fa.flash_attention.launches == per_layer
+    tol = 1e-4 if act_dtype == "float32" else 5e-2  # bf16: the CPU and the card round differently
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=tol, atol=tol)
+    if arch.startswith("whisper") and act_dtype == "float32":
+        tc = whisper.init_cache(cfg, 2, 16, fill_len=0, device="cpu")
+        dc = whisper.init_cache(cfg, 2, 16, fill_len=0, device=cuda)
+        tc["enc_out"] = whisper.encode(cfg, params, extra)
+        dc["enc_out"] = whisper.encode(cfg, dev_params, extra.to(cuda))
+        for t in range(4):
+            fa.flash_attention.launches = 0
+            w, tc = whisper.decode_step(cfg, params, tc, toks[:, t])
+            g, dc = whisper.decode_step(cfg, dev_params, dc, toks[:, t].to(cuda))
+            assert fa.flash_attention.launches == cfg.n_layers
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)

@@ -299,7 +299,9 @@ def test_segment_reduce_plain_empty():
 
 # (B, H, Hkv, Tq, Tk, D, causal, window): the reference suite's six cases
 # (tests/test_kernels.py), then Tq > Tk under causality, whose first rows
-# see no key and return 0
+# see no key and return 0; pixtral's head dim 160 (GQA 4:1 causal,
+# non-causal, unaligned); whisper's cross attention (non-causal, a few
+# queries and one query over more keys)
 FLASH_CASES = {
     "mha": (1, 2, 2, 64, 64, 16, True, 0),
     "gqa": (1, 4, 2, 64, 64, 16, True, 0),
@@ -308,6 +310,11 @@ FLASH_CASES = {
     "window": (1, 2, 1, 96, 96, 16, True, 40),
     "unaligned": (1, 1, 1, 50, 70, 16, True, 0),
     "masked_rows": (2, 4, 2, 40, 24, 16, True, 0),
+    "d160_gqa": (1, 4, 1, 64, 64, 160, True, 0),
+    "d160_noncausal": (1, 2, 2, 40, 40, 160, False, 0),
+    "d160_unaligned": (1, 4, 1, 50, 70, 160, True, 0),
+    "whisper_cross": (2, 4, 4, 7, 150, 16, False, 0),
+    "whisper_cross_decode": (2, 4, 4, 1, 150, 16, False, 0),
 }
 FLASH_TOL = 2e-3  # the reference suite's tolerance for its kernel against the oracle
 
@@ -336,7 +343,7 @@ def test_flash_attention_plain_matches_reference_kernel(case):
         assert not got[:, :, : Tq - Tk].any()
 
 
-@pytest.mark.parametrize("case", ["gqa", "window", "unaligned"])
+@pytest.mark.parametrize("case", ["gqa", "window", "unaligned", "d160_gqa", "d160_unaligned", "whisper_cross"])
 def test_flash_attention_plain_matches_reference_kernel_bf16(case):
     """bfloat16 in and out, float32 accumulation, ``p`` rounded to bfloat16
     before the PV product in both.  Tolerance 1e-2: the outputs are rounded

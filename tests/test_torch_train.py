@@ -11,7 +11,10 @@ kernel's plain twin, its backward the reference's plain route):
   for bit, with the forward called again a period in the backward;
 * ``FlashAttentionFn``'s ``dq``, ``dk``, ``dv`` against autograd through
   ``repro.kernels.ref.flash_attention`` (GQA, MQA, a window, Tq < Tk, rows
-  that see no key, and above 2,048 keys, where the chunked route runs);
+  that see no key, above 2,048 keys, where the chunked route runs, whisper's
+  non-causal cross attention and pixtral's head dim 160);
+* ``loss_fn`` with patch embeddings in front of the tokens (pixtral's
+  batch) against the reference's, every gradient leaf;
 * ``schedule``, ``compress_grads`` and three ``apply_updates`` steps against
   ``repro.train.optimizer`` from one state (``opt_state_from_reference``),
   float32 and bfloat16 moments, with compression; the compressed update in
@@ -166,12 +169,20 @@ def test_remat_gradients_equal_no_remat_bitwise(period, monkeypatch):
         assert torch.equal(a, b), key
 
 
-def test_loss_fn_refuses_patches():
-    _, tcfg, rp = _pair("llama_gqa")
-    b = _torch_batch(_batch(tcfg, 1, 4, seed=0))
-    b["patches"] = torch.zeros((1, 2, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="pixtral"):
-        tlm.loss_fn(tcfg, params_from_reference(tcfg, _np(rp), device=CPU), b)
+def test_loss_fn_with_patches_matches_reference():
+    """Patch embeddings in front of the tokens (pixtral's batch, here on the
+    reduced llama): the loss over the token positions and every gradient
+    leaf against ``jax.value_and_grad``."""
+    rcfg, tcfg, rp = _pair("llama_gqa")
+    b = _batch(tcfg, 2, 6, seed=0, mask=True)
+    b["patches"] = (np.random.default_rng(1).normal(size=(2, 3, tcfg.d_model)) * 0.02).astype(np.float32)
+    loss, grads = jax.jit(jax.value_and_grad(lambda p, x: rlm.loss_fn(rcfg, p, x)))(rp, b)
+    tp = _trainable(params_from_reference(tcfg, _np(rp), device=CPU))
+    got = tlm.loss_fn(tcfg, tp, _torch_batch(b))
+    got.backward()
+    np.testing.assert_allclose(float(got.detach()), float(loss), rtol=LOSS_RTOL)
+    _close_leaves(tcommon.tree_map(lambda p: p.grad, tp), params_from_reference(tcfg, _np(grads), device=CPU),
+                  GRAD_REL)
 
 
 def test_init_shapes_are_meta_and_match_init():
@@ -187,26 +198,32 @@ def test_init_shapes_are_meta_and_match_init():
 # the attention gradient
 # ---------------------------------------------------------------------------
 
-# (B, H, Hkv, Tq, Tk, causal, window): GQA, MQA, MHA with a window, Tq < Tk,
-# Tq > Tk (the first rows see no key), non-causal, and above 2,048 keys
+# (B, H, Hkv, Tq, Tk, causal, window, D): GQA, MQA, MHA with a window, Tq <
+# Tk, Tq > Tk (the first rows see no key), non-causal, above 2,048 keys;
+# whisper's cross attention (non-causal, MHA, a few queries over more keys,
+# and one query); pixtral's head dim 160, causal and non-causal over more keys
 ATTN_CASES = {
-    "gqa_causal": (2, 4, 2, 24, 24, True, 0),
-    "mqa_causal": (1, 4, 1, 17, 17, True, 0),
-    "mha_window": (1, 2, 2, 30, 30, True, 7),
-    "gqa_tq_lt_tk": (1, 4, 2, 9, 40, True, 0),
-    "empty_rows": (1, 2, 1, 20, 12, True, 0),
-    "noncausal": (1, 4, 2, 12, 19, False, 0),
-    "chunked_gqa": (1, 4, 2, 5, 2100, True, 0),
-    "chunked_window": (1, 2, 1, 6, 2305, True, 300),
+    "gqa_causal": (2, 4, 2, 24, 24, True, 0, 16),
+    "mqa_causal": (1, 4, 1, 17, 17, True, 0, 16),
+    "mha_window": (1, 2, 2, 30, 30, True, 7, 16),
+    "gqa_tq_lt_tk": (1, 4, 2, 9, 40, True, 0, 16),
+    "empty_rows": (1, 2, 1, 20, 12, True, 0, 16),
+    "noncausal": (1, 4, 2, 12, 19, False, 0, 16),
+    "chunked_gqa": (1, 4, 2, 5, 2100, True, 0, 16),
+    "chunked_window": (1, 2, 1, 6, 2305, True, 300, 16),
+    "cross_mha": (2, 4, 4, 7, 30, False, 0, 16),
+    "cross_one_query": (2, 4, 4, 1, 30, False, 0, 16),
+    "d160_gqa_causal": (1, 4, 1, 21, 21, True, 0, 160),
+    "d160_cross": (1, 4, 2, 5, 33, False, 0, 160),
 }
 
 
 @pytest.mark.parametrize("case", list(ATTN_CASES))
 def test_attention_gradient_matches_reference(case):
-    B, H, Hkv, Tq, Tk, causal, window = ATTN_CASES[case]
+    B, H, Hkv, Tq, Tk, causal, window, D = ATTN_CASES[case]
     rng = np.random.default_rng(len(case))
-    q, k, v = (rng.normal(size=s).astype(np.float32) for s in ((B, H, Tq, 16), (B, Hkv, Tk, 16), (B, Hkv, Tk, 16)))
-    d_out = rng.normal(size=(B, H, Tq, 16)).astype(np.float32)
+    q, k, v = (rng.normal(size=s).astype(np.float32) for s in ((B, H, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D)))
+    d_out = rng.normal(size=(B, H, Tq, D)).astype(np.float32)
 
     def ref_out(q, k, v):
         g = H // Hkv
