@@ -333,6 +333,28 @@ Phases (any failure exits non-zero):
    (each leaf at cosine >= 0.99); ``python -m repro_torch.launch.serve
    --arch whisper-large-v3 --reduced`` and ``--arch pixtral-12b
    --reduced`` in the background (see 16);
+20. (after 19, before 13's line) LM sharding on the card, every shard of
+   every mesh on it (``exec.distributed.make_mesh``): llama4 scout at its
+   published widths cut to 4 of 48 layers (random bf16 weights, seed 0), a
+   2 × 4,096 prefill under ``sharding.partition.use_mesh`` on 8 shards
+   (data 2, model 4): each layer's MoE output (the expert-parallel region,
+   ``moe.moe_apply_sharded``) against ``moe_apply`` on each data half
+   (cosine >= 0.999), the drop fraction a layer, 4 flash-attention
+   launches from zero, the region run for every MoE layer with no
+   fallback, finite logits, the warm wall and peak beside the unsharded
+   prefill's, the device time of ``moe.gather`` / ``moe.psum`` /
+   ``moe.experts``; the same prefill on 4 model shards against the
+   unsharded logits (cosine >= 0.999); 8 decode steps at 4 slots on the 8
+   shards against the same steps unsharded (cosine >= 0.99 a row);
+   jamba-1.5-large-398b's sub1 (Mamba + MoE 16 × 24,576, top-2) at 1 ×
+   8,192 on 4 model shards against unsharded (cosine >= 0.999, one scan
+   launch); ``compressed_psum`` over 4 shards of random float32 gradients
+   shaped as llama3.2-3b's layer 0 (error < 0.05 of the float sum, carries
+   bit for bit), timed beside a plain ``psum``; the ring all-gather matmul
+   over 4 shards (X 8,192 × 3,072 bf16, W 3,072 × 8,192) against the
+   gathered product and ``X @ W``, the three timed; reduced llama's
+   checkpoint restored by ``restore(..., shardings=param_shardings(...))``
+   onto (data 2, model 2), each block equal to the saved slice;
 13. print the ``-Xptxas -v`` report of one generated fused region of each
    dictionary-terminal path (a block-private table, device memory, radix)
    and the kernels' JSON line (the fused pipeline's entry with its modes:
@@ -524,6 +546,26 @@ ENCDEC_VLM_FIXTURE = {"whisper": (WSP_ARCH, dict(d_model=32, n_layers=2)),
                       "pixtral": (PIX_ARCH, dict(d_model=32, n_layers=2, n_heads=2, n_kv_heads=1, head_dim=160,
                                                  d_ff=64))}
 ENCDEC_FIXTURE_STEPS = 4
+# phase 20, LM sharding on one card (the single-controller mesh, every shard
+# on the card): llama4 scout at its published widths cut to 4 of its 48
+# layers, a 2 x 4,096 prefill on 8 shards (data 2, model 4) and on 4 (model
+# 4), 8 decode steps at 4 slots on the 8; jamba's sub1 (Mamba + MoE, 16
+# experts top-2) at 1 x 8,192 on 4 model shards; compressed_psum over 4
+# shards of llama3.2-3b's layer-0 gradient shapes; the ring all-gather
+# matmul over 4 shards; reduced llama's checkpoint restored onto (data 2,
+# model 2)
+SHARD_SCOUT_LAYERS, SHARD_B, SHARD_T = 4, 2, 4096
+SHARD_MESH, SHARD_TP_MESH, SHARD_RESTORE_MESH = {"data": 2, "model": 4}, {"model": 4}, {"data": 2, "model": 2}
+SHARD_COS = 0.999  # a layer's MoE against moe_apply per data half; the model-4 prefill and jamba's sub1 against unsharded
+# and beside the cosine, which ignores scale, the same outputs' relative
+# Frobenius error within one bf16 step (2^-7): both sides run the same ops on
+# the same values and differ at most in the order of a sum
+SHARD_REL = 2.0**-7
+SHARD_DECODE_SLOTS, SHARD_DECODE_STEPS = 4, 8
+SHARD_JAMBA_T = 8192
+PSUM_SHARDS, PSUM_REL = 4, 0.05  # the reference's int8 bound (tests/test_distributed.py:109)
+RING_SHARDS, RING_M, RING_K, RING_N = 4, 8192, 3072, 8192
+RING_COS = 0.9999  # bf16 outputs of one product summed in other orders
 
 
 def check(cond, msg):
@@ -2803,6 +2845,323 @@ def encdec_vlm_phase(torch, dev, src, smi):
     return out
 
 
+def lm_sharding_phase(torch, dev, src, smi):
+    """LM sharding on the card, every shard of every mesh on it: llama4
+    scout (4 of 48 layers) prefilled under ``use_mesh`` on 8 shards (each
+    layer's MoE output against ``moe_apply`` per data half, the aux, the
+    wall and peak beside the unsharded prefill, the collectives' device
+    time) and on 4 model shards (logits against unsharded), decoded on 8;
+    jamba's sub1 on 4 model shards against unsharded; ``compressed_psum``
+    over 4 shards against the float sum, its carries bit for bit, timed
+    beside a plain ``psum``; the ring all-gather matmul against the gathered
+    product and ``X @ W``, timed; reduced llama's checkpoint restored onto a
+    (2, 2) mesh, its blocks bit for bit."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.exec import distributed as D
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import selective_scan as SS
+    from repro_torch.models import common as MC
+    from repro_torch.models import jamba as JB
+    from repro_torch.models import lm as LM
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding import overlap as OV
+    from repro_torch.sharding import params as SPP
+    from repro_torch.sharding import partition as SP
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import optimizer as OPT
+
+    out = {"allocated_before": torch.cuda.memory_allocated()}
+    launches = {"flash_attention": 0, "selective_scan": 0}
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+
+    stamp("20. LM sharding: the meshes")
+    meshes = {name: D.make_mesh(shape) for name, shape in (("8", SHARD_MESH), ("tp4", SHARD_TP_MESH),
+                                                          ("data4", {"data": PSUM_SHARDS}),
+                                                          ("ring4", {"tp": RING_SHARDS}),
+                                                          ("restore", SHARD_RESTORE_MESH))}
+    for name, mesh in meshes.items():  # made for the card (device None): no shard on the host
+        check(all(d.type == "cuda" for d in mesh.devices), f"mesh {name} has a shard off the card: {mesh.devices}")
+        print(f"mesh {dict(mesh.axes)}: {mesh.size} shards on {len(set(mesh.devices))} card(s) "
+              f"({sorted({str(d) for d in mesh.devices})})")
+    mesh8, mesh4 = meshes["8"], meshes["tp4"]
+    n_dp = mesh8.axis_size("data")
+
+    stamp(f"20. LM sharding: {MOE_SCOUT}, {SHARD_SCOUT_LAYERS} of 48 layers, weights")
+    cfg = dataclasses.replace(configs.get(MOE_SCOUT), n_layers=SHARD_SCOUT_LAYERS)
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab, cfg.moe_experts, cfg.moe_top_k,
+           cfg.moe_shared_expert) == (5120, 40, 8, 128, 8192, 202048, 16, 1, True),
+          f"{MOE_SCOUT} is not at its published widths")
+    model = get_model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    params = model.init(gen, dtype=torch.bfloat16)
+    scout = out["scout"] = {"weight_bytes": sum(t.numel() * t.element_size() for t in MC.tree_leaves(params))}
+    tokens = torch.randint(0, cfg.vocab, (SHARD_B, SHARD_T), generator=gen, device=dev)
+    kw = {"n_experts": cfg.moe_experts, "top_k": cfg.moe_top_k, "capacity_factor": cfg.moe_capacity_factor}
+    cap = max(8, int(cfg.moe_capacity_factor * SHARD_T * cfg.moe_top_k / cfg.moe_experts))
+    print(f"{MOE_SCOUT}: {cfg.n_layers} of 48 layers at the published widths, random bf16 weights (seed {LM_SEED}) "
+          f"{scout['weight_bytes'] / 1e9:.2f} GB; prefill {SHARD_B} x {SHARD_T}; capacity {cap} an expert a data "
+          f"shard ({SHARD_T} tokens)")
+
+    stamp("20. LM sharding: the unsharded prefill")
+    forward = lambda: model.forward(params, tokens)
+    _, scout["dense_cold_s"] = wall(torch, forward)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (dense, _), scout["dense_warm_s"] = wall(torch, forward)
+    scout["dense_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+
+    stamp(f"20. LM sharding: the prefill on {mesh8.size} shards {dict(mesh8.axes)}, each MoE layer checked")
+    real_layer, layer_rows = MOE.moe_dispatch_auto, []
+
+    def checked_layer(p, x, cfg_, mesh=None):
+        y, aux = real_layer(p, x, cfg_, mesh=mesh)
+        halves = [MOE.moe_apply(p, h, **kw) for h in x.split(x.shape[0] // n_dp)]
+        want = torch.cat([h[0] for h in halves])
+        cos, rel = cos_rel(torch, y, want)
+        layer_rows.append({"cos": cos, "rel": rel, "max_abs": float((y.float() - want.float()).abs().max()),
+                           "drop_fraction": float(aux["drop_fraction"]),
+                           "halves_drop_fraction": sum(float(h[1]["drop_fraction"]) for h in halves) / n_dp})
+        return y, aux
+
+    regions, fallbacks = MOE.moe_apply_sharded.regions, MOE.moe_apply_sharded.fallbacks
+    MOE.moe_dispatch_auto = checked_layer
+    try:
+        with SP.use_mesh(mesh8):
+            _, scout["sharded_cold_s"] = wall(torch, forward)
+    finally:
+        MOE.moe_dispatch_auto = real_layer
+    check(len(layer_rows) == cfg.n_layers, f"{len(layer_rows)} MoE layers checked of {cfg.n_layers}")
+    for i, r in enumerate(layer_rows):
+        check(r["cos"] >= SHARD_COS and r["rel"] <= SHARD_REL,
+              f"layer {i}'s sharded MoE is at cosine {r['cos']}, relative error {r['rel']} to moe_apply per data half")
+        print(f"layer {i} MoE on {mesh8.size} shards against moe_apply on each data half (capacity {cap}): cosine "
+              f"{r['cos']:.6f} (>= {SHARD_COS}), relative error {r['rel']:.4g} (<= {SHARD_REL:.4g}), max |delta| "
+              f"{r['max_abs']:.4g}; drop fraction {r['drop_fraction']:.4f} (the halves' mean "
+              f"{r['halves_drop_fraction']:.4f})")
+    scout["layers"] = layer_rows
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    # the main path: one warm sharded prefill, its launches counted from 0
+    # (first_calls zeroes them) and layer 0's attention call kept
+    with first_calls([(FA, "flash_attention")]) as first, SP.use_mesh(mesh8):
+        (logits, aux), scout["sharded_warm_s"] = wall(torch, forward)
+    scout["sharded_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    scout["launches"] = FA.flash_attention.launches
+    check(scout["launches"] == cfg.n_layers, f"{scout['launches']} flash-attention launches in a forward of "
+                                            f"{cfg.n_layers} layers")
+    check(MOE.moe_apply_sharded.regions - regions == 2 * cfg.n_layers
+          and MOE.moe_apply_sharded.fallbacks == fallbacks,
+          f"the sharded prefills ran the region {MOE.moe_apply_sharded.regions - regions} times and fell back "
+          f"{MOE.moe_apply_sharded.fallbacks - fallbacks} times for {2 * cfg.n_layers} MoE layers")
+    check(logits.shape == (SHARD_B, SHARD_T, cfg.padded_vocab) and bool(torch.isfinite(logits).all()),
+          "the sharded prefill's logits are not finite or of the wrong shape")
+    scout["aux"] = aux.tolist()
+    launches["flash_attention"] += scout["launches"]
+    del logits
+
+    stamp(f"20. LM sharding: layer 0's attention on {mesh8.size} shards against its twin")
+    (q, k, v), akw, got = first.pop("flash_attention")[0]
+    check((tuple(q.shape), tuple(k.shape), q.dtype, akw) == ((SHARD_B, cfg.n_heads, SHARD_T, cfg.hd),
+                                                             (SHARD_B, cfg.n_kv_heads, SHARD_T, cfg.hd),
+                                                             torch.bfloat16, {"causal": True, "window": 0}),
+          f"the sharded prefill's layer 0 attention ran at q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype}, {akw}")
+    want = FA.flash_attention_plain(q, k, v, **akw)
+    out["fa_err"], scout["attention_long_row_rel"] = check_attention(
+        torch, got, want, "bfloat16", SHARD_T, True, 0, f"sharded scout layer 0 {tuple(q.shape)}")
+    print(f"the sharded prefill's layer 0 flash attention (B={SHARD_B} H={cfg.n_heads} Hkv={cfg.n_kv_heads}, "
+          f"T={SHARD_T}, D={cfg.hd}, causal, bf16) against its twin on the same q, k, v: max |kernel - twin| "
+          f"{out['fa_err']:.3g} (tolerance {FA_TOL['bfloat16']}), rows of over {FA_LONG_ROW} keys "
+          f"{scout['attention_long_row_rel']:.3g} of their norm (limit {FA_REL_TOL})")
+    del first, q, k, v, got, want
+    with SP.use_mesh(mesh8):
+        scout["profile"] = prof = train_profile(torch, forward, MOE.SHARDED_RANGES, warm=True)
+    print(json.dumps({"profile_sharded_scout_prefill": prof}))
+    # the ZeRO gather: every shard reads its experts' data blocks and writes
+    # its 3 stacks whole, a layer
+    e_loc = cfg.moe_experts // mesh8.axis_size("model")
+    scout["gather_bytes"] = 2 * cfg.n_layers * mesh8.size * 3 * e_loc * cfg.d_model * cfg.d_ff * 2
+    scout["gather_gbs"] = scout["gather_bytes"] / prof["moe.gather_ms"] / 1e6
+    print(f"{MOE_SCOUT} prefill {SHARD_B} x {SHARD_T}: unsharded warm {scout['dense_warm_s'] * 1e3:.1f} ms (peak "
+          f"+{scout['dense_peak_bytes'] / 2**30:.2f} GiB over the weights), on {mesh8.size} shards warm "
+          f"{scout['sharded_warm_s'] * 1e3:.1f} ms (peak +{scout['sharded_peak_bytes'] / 2**30:.2f} GiB), cold "
+          f"{scout['sharded_cold_s']:.2f}s; {scout['launches']} flash-attention launches; logits finite; aux summed "
+          f"over the layers (load balance, router z, drop fraction) {[round(a, 5) for a in scout['aux']]}; the region "
+          f"ran for every MoE layer, no fallback; profiled: wall {prof['step_ms']:.1f} ms, busy "
+          f"{prof['device_busy_ms']:.1f}, idle {prof['device_idle_share']:.3f}; device ms: gather "
+          f"{prof['moe.gather_ms']:.2f} ({scout['gather_bytes'] / 1e9:.1f} GB read and written, "
+          f"{scout['gather_gbs']:.0f} GB/s), psum {prof['moe.psum_ms']:.2f}, experts {prof['moe.experts_ms']:.2f} "
+          f"(matmuls {prof['moe.experts_matmul_ms']:.2f}); on one card the gather and the psum are copies and adds "
+          f"within the card")
+
+    stamp(f"20. LM sharding: the prefill on {mesh4.size} shards {dict(mesh4.axes)} against unsharded")
+    FA.flash_attention.launches = 0
+    with SP.use_mesh(mesh4):
+        (tp_logits, _), scout["tp_warm_s"] = wall(torch, forward)
+    scout["tp_launches"] = FA.flash_attention.launches
+    launches["flash_attention"] += scout["tp_launches"]
+    scout["tp_cos"], scout["tp_rel"] = cos_rel(torch, tp_logits, dense)
+    scout["tp_max_abs"] = float((tp_logits.float() - dense.float()).abs().max())
+    check(scout["tp_cos"] >= SHARD_COS and scout["tp_rel"] <= SHARD_REL and scout["tp_launches"] == cfg.n_layers,
+          f"the model-4 prefill's logits are at cosine {scout['tp_cos']}, relative error {scout['tp_rel']} to "
+          f"unsharded ({scout['tp_launches']} launches)")
+    print(f"prefill on {mesh4.size} model shards (no data axis: the dense path's capacity): logits against unsharded "
+          f"cosine {scout['tp_cos']:.6f} (>= {SHARD_COS}), relative error {scout['tp_rel']:.4g} (<= "
+          f"{SHARD_REL:.4g}), max |delta| {scout['tp_max_abs']:.4g}; warm "
+          f"{scout['tp_warm_s'] * 1e3:.1f} ms; {scout['tp_launches']} launches")
+    del tp_logits, dense
+
+    stamp(f"20. LM sharding: {SHARD_DECODE_STEPS} decode steps at {SHARD_DECODE_SLOTS} slots on {mesh8.size} shards")
+    caches = [LM.init_cache(cfg, SHARD_DECODE_SLOTS, 64, fill_len=0, device=dev) for _ in range(2)]
+    toks = torch.randint(0, cfg.vocab, (SHARD_DECODE_SLOTS, SHARD_DECODE_STEPS), generator=gen, device=dev)
+    worst, regions, steps_s, dense_s = 1.0, MOE.moe_apply_sharded.regions, [], []
+    for t in range(SHARD_DECODE_STEPS):
+        (want, caches[0]), sec = wall(torch, lambda: model.decode_step(params, caches[0], toks[:, t]))
+        dense_s.append(sec)
+        with SP.use_mesh(mesh8):
+            (got, caches[1]), sec = wall(torch, lambda: model.decode_step(params, caches[1], toks[:, t]))
+        steps_s.append(sec)
+        worst = min(worst, float(F.cosine_similarity(got.float(), want.float(), dim=-1).min()))
+    check(MOE.moe_apply_sharded.regions - regions == SHARD_DECODE_STEPS * cfg.n_layers,
+          "a sharded decode step took the dense fallback")
+    check(worst >= DECODE_COS, f"sharded decode drifts from unsharded: least cosine {worst}")
+    scout["decode_cos"], scout["decode_step_s"], scout["dense_decode_step_s"] = worst, steps_s, dense_s
+    print(f"decode on {mesh8.size} shards, {SHARD_DECODE_STEPS} steps of {SHARD_DECODE_SLOTS} rows (capacity 8 on "
+          f"both paths: no token dropped) against the same steps unsharded: least cosine a row {worst:.6f} (>= "
+          f"{DECODE_COS}); a sharded step {min(steps_s) * 1e3:.1f}-{max(steps_s) * 1e3:.1f} ms, unsharded "
+          f"{min(dense_s) * 1e3:.1f}-{max(dense_s) * 1e3:.1f} ms")
+    del params, model, caches, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    stamp(f"20. LM sharding: {REC_JAMBA} sub1 at 1 x {SHARD_JAMBA_T} on {mesh4.size} model shards")
+    jcfg = configs.get(REC_JAMBA)
+    check((jcfg.d_model, jcfg.d_ff, jcfg.moe_experts, jcfg.moe_top_k) == (8192, 24576, 16, 2),
+          f"{REC_JAMBA} is not at its published widths")
+    torch.cuda.reset_peak_memory_stats()
+    sub = JB._sub_init(jcfg, 1, gen, dev, torch.bfloat16)
+    check("moe" in sub and "mamba" in sub, "jamba's sub1 is not Mamba + MoE")
+    x = torch.randn((1, SHARD_JAMBA_T, jcfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    positions = torch.arange(SHARD_JAMBA_T, device=dev)
+    sub_fn = lambda: JB._sub_apply(jcfg, sub, x, 0, positions=positions)[0]
+    jam = out["jamba_sub1"] = {"params": sum(t.numel() for t in MC.tree_leaves(sub))}
+    _, _ = wall(torch, sub_fn)
+    want, jam["dense_warm_s"] = wall(torch, sub_fn)
+    regions = MOE.moe_apply_sharded.regions
+    with SP.use_mesh(mesh4):
+        wall(torch, sub_fn)
+        SS.selective_scan.launches = 0
+        got, jam["sharded_warm_s"] = wall(torch, sub_fn)
+    jam["launches"] = SS.selective_scan.launches
+    launches["selective_scan"] += jam["launches"]
+    check(MOE.moe_apply_sharded.regions - regions == 2 and jam["launches"] == 1,
+          f"jamba's sub1 on {mesh4.size} shards: {MOE.moe_apply_sharded.regions - regions} regions, "
+          f"{jam['launches']} scan launches")
+    jam["cos"], jam["rel"] = cos_rel(torch, got, want)
+    jam["max_abs"] = float((got.float() - want.float()).abs().max())
+    jam["peak_bytes"] = torch.cuda.max_memory_allocated()
+    check(jam["cos"] >= SHARD_COS and jam["rel"] <= SHARD_REL and bool(torch.isfinite(got).all()),
+          f"jamba's sub1 on {mesh4.size} shards is at cosine {jam['cos']}, relative error {jam['rel']} to unsharded")
+    print(f"{REC_JAMBA} sub1 (Mamba + MoE {jcfg.moe_experts} x {jcfg.d_ff} top-{jcfg.moe_top_k}, {jam['params']} "
+          f"parameters, bf16) at 1 x {SHARD_JAMBA_T} on {mesh4.size} model shards against unsharded: cosine "
+          f"{jam['cos']:.6f} (>= {SHARD_COS}), relative error {jam['rel']:.4g} (<= {SHARD_REL:.4g}), max |delta| "
+          f"{jam['max_abs']:.4g} (a token's two experts may sit on two "
+          f"shards, whose psum adds their outputs in shard order); warm {jam['sharded_warm_s'] * 1e3:.1f} ms against "
+          f"{jam['dense_warm_s'] * 1e3:.1f} ms; one scan launch; peak {jam['peak_bytes'] / 2**30:.2f} GiB")
+    del sub, x, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    stamp(f"20. LM sharding: compressed_psum over {PSUM_SHARDS} shards of {LM_ARCH}'s layer-0 gradients")
+    mesh = meshes["data4"]
+    shapes = dict(MC.tree_items(get_model(configs.get(LM_ARCH), device="meta").init_shapes()["layers"][0]))
+    grads = [{k: torch.randn(v.shape, generator=gen, device=dev) * 1e-3 for k, v in shapes.items()}
+             for _ in range(PSUM_SHARDS)]
+    efs = [{k: torch.randn(v.shape, generator=gen, device=dev) * 1e-5 for k, v in shapes.items()}
+           for _ in range(PSUM_SHARDS)]
+    summed, carries = OPT.compressed_psum(grads, efs, mesh, "data")
+    worst_rel, equal = 0.0, True
+    for k in shapes:
+        want = sum(g[k] for g in grads)
+        worst_rel = max(worst_rel, float((summed[0][k] - want).abs().max() / want.abs().max()))
+        for s in range(PSUM_SHARDS):
+            target = grads[s][k] + efs[s][k]
+            deq = OPT._dequantize(*OPT._quantize(target))
+            equal &= torch.equal(carries[s][k], target - deq) and torch.equal(summed[s][k], summed[0][k])
+    n_elems = sum(v.numel() for v in shapes.values())
+    ps = out["compressed_psum"] = {"leaves": len(shapes), "elements": n_elems, "rel_err": worst_rel}
+    check(worst_rel < PSUM_REL and equal, f"compressed_psum: relative error {worst_rel} (< {PSUM_REL}), carries "
+                                          f"equal {equal}")
+    ps["ms"] = timed(torch, lambda: OPT.compressed_psum(grads, efs, mesh, "data"), 3)
+    ps["plain_psum_ms"] = timed(torch, lambda: [D.psum([g[k] for g in grads], mesh, "data") for k in shapes], 3)
+    print(f"compressed_psum over {PSUM_SHARDS} shards of {len(shapes)} float32 leaves ({n_elems} elements a shard): "
+          f"largest error against the float sum {worst_rel:.4g} of the sum's max (< {PSUM_REL}); carries equal "
+          f"(g + e) - dequantize(quantize(g + e)) bit for bit; {ps['ms']:.2f} ms against a plain psum's "
+          f"{ps['plain_psum_ms']:.2f} ms (on one card the int8 payload saves no link bytes)")
+    del grads, efs, summed, carries
+
+    stamp(f"20. LM sharding: ring all-gather matmul over {RING_SHARDS} shards")
+    mesh = meshes["ring4"]
+    X = torch.randn((RING_M, RING_K), generator=gen, device=dev).to(torch.bfloat16)
+    W = (torch.randn((RING_K, RING_N), generator=gen, device=dev) * RING_K**-0.5).to(torch.bfloat16)
+    xs = SP.shard(X, SP.NamedSharding(mesh, SP.P("tp", None)))
+    ring = OV.ring_allgather_matmul(xs, W, mesh, "tp")
+    gathered = OV.allgather_matmul_reference(xs, W, mesh, "tp")
+    full = X @ W
+    rr = out["ring"] = {"shards": RING_SHARDS, "m": RING_M, "k": RING_K, "n": RING_N}
+    rr["cos_gathered"] = min(cos_rel(torch, r, g)[0] for r, g in zip(ring, gathered))
+    rr["cos_xw"] = min(cos_rel(torch, r, full)[0] for r in ring)
+    rr["max_abs_xw"] = max(float((r.float() - full.float()).abs().max()) for r in ring)
+    check(rr["cos_gathered"] >= RING_COS and rr["cos_xw"] >= RING_COS,
+          f"the ring is at cosine {rr['cos_gathered']} to the gathered product, {rr['cos_xw']} to X @ W")
+    rr["ms"] = timed(torch, lambda: OV.ring_allgather_matmul(xs, W, mesh, "tp"), 3)
+    rr["gathered_ms"] = timed(torch, lambda: OV.allgather_matmul_reference(xs, W, mesh, "tp"), 3)
+    rr["xw_ms"] = timed(torch, lambda: X @ W, 3)
+    print(f"ring all-gather matmul, X [{RING_M}, {RING_K}] bf16 row-sharded over {RING_SHARDS} shards, W [{RING_K}, "
+          f"{RING_N}]: against the gathered product cosine {rr['cos_gathered']:.6f}, against X @ W "
+          f"{rr['cos_xw']:.6f} (>= {RING_COS}), max |delta| {rr['max_abs_xw']:.4g}; ring {rr['ms']:.2f} ms, all-gather "
+          f"then matmul {rr['gathered_ms']:.2f} ms, one X @ W {rr['xw_ms']:.2f} ms (each shard computes the whole "
+          f"product; on one card the permutes are copies within the card, so no overlap between cards is measured)")
+    del X, W, xs, ring, gathered, full
+
+    stamp(f"20. LM sharding: restore(shardings=) onto {SHARD_RESTORE_MESH}")
+    mesh = meshes["restore"]
+    rcfg = configs.get(LM_ARCH).reduce()
+    rmodel = get_model(rcfg, device=dev)
+    saved = rmodel.init(torch.Generator(device=dev).manual_seed(LM_SEED))
+    ck = os.path.join(os.path.dirname(src), "build", "sharding_smoke")
+    shutil.rmtree(ck, ignore_errors=True)
+    CK.save(ck, 1, {"params": saved})
+    like = {"params": rmodel.init_shapes()}
+    shardings = {"params": SPP.param_shardings(mesh, like["params"])}
+    got, _ = CK.restore(ck, like, shardings=shardings)
+    n_split = n_blocks = 0
+    for (path, t), sh, placed in zip(MC.tree_items(saved), MC.tree_leaves(shardings["params"]),
+                                     MC.tree_leaves(got["params"])):
+        check(isinstance(placed, SP.Sharded) and placed.sharding is sh, f"{path} was not restored onto its sharding")
+        for sl, dv, b in zip(SP.block_slices(sh, t.shape), mesh.devices, placed.blocks):
+            check(b.device == dv and torch.equal(b, t[sl]), f"restored block of {path} differs from the saved slice")
+            n_blocks += 1
+        check(torch.equal(placed.unshard(), t), f"unshard of the restored {path} differs from the saved array")
+        n_split += any(e is not None for e in sh.spec)
+    check(n_split > 0, "no leaf of the reduced llama was split on the restore mesh")
+    shutil.rmtree(ck, ignore_errors=True)
+    out["restore"] = {"leaves": len(list(MC.tree_items(saved))), "split_leaves": n_split, "blocks": n_blocks}
+    print(f"reduced {LM_ARCH} checkpoint restored onto {SHARD_RESTORE_MESH} by param_shardings: {n_blocks} blocks of "
+          f"{out['restore']['leaves']} leaves ({n_split} split) equal the saved slices bit for bit, on their shards' "
+          f"devices; unshard gives each leaf back")
+
+    out["launches"] = launches
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"LM sharding phase: {out['seconds']:.1f}s on {smi}; peak max_memory_allocated "
+          f"{out['peak_bytes'] / 2**30:.2f} GiB ({out['allocated_before'] / 2**30:.2f} allocated before the phase)")
+    return out
+
+
 def install_phase(torch, dev, refs, walls, root):
     """The installation stage on the card, then TPC-H SF 1 under the learned
     Δ: the profiling sweep over every family (counts from zero; each
@@ -4759,6 +5118,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 20. LM sharding on the card's single-controller mesh --------------------
+    with torch.no_grad():  # inference: no graph
+        sharding_lm = lm_sharding_phase(torch, dev, src, smi)
+    launches["lm_sharding"] = sharding_lm["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- 13. the kernels' line --------------------------------------------------
     fa8k = lm["fa_rows"][0]
     total = {name: sum(path.get(name, 0) for path in launches.values())
@@ -4809,7 +5175,7 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:92", "launches": total["flash_attention"],
          "launches_by_path": {path: n["flash_attention"] for path, n in launches.items() if "flash_attention" in n},
-         "max_abs_err": max(lm["fa_err"], moe["fa_err"], encdec["fa_err"]), "ms": fa8k["ms"], "plain_ms": fa8k["plain_ms"],
+         "max_abs_err": max(lm["fa_err"], moe["fa_err"], encdec["fa_err"], sharding_lm["fa_err"]), "ms": fa8k["ms"], "plain_ms": fa8k["plain_ms"],
          "bound_ms": fa8k["bound_ms"],
          "bound_by": "bytes" if fa8k["bytes"] / HBM_BYTES_PER_S >= fa8k["ops"] / BF16_OPS_PER_S else "operations",
          "library_ms": fa8k["library_ms"],
@@ -4861,7 +5227,9 @@ def main() -> int:
                               for k, v in moe.items()},
                       "recurrent": {k: v for k, v in rec.items() if k not in ("rwkv", "jamba")},
                       "encdec_vlm": {k: ({kk: vv for kk, vv in v.items() if kk != "profile"} if isinstance(v, dict) else v)
-                                     for k, v in encdec.items()}}))
+                                     for k, v in encdec.items()},
+                      "lm_sharding": {k: ({kk: vv for kk, vv in v.items() if kk != "profile"} if isinstance(v, dict)
+                                          else v) for k, v in sharding_lm.items()}}))
     print(f"chip_smoke: {time.perf_counter() - START:.1f}s in all on {smi}")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))

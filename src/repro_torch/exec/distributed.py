@@ -27,9 +27,12 @@ which takes every shard's operand at once and hands each shard its part.
 Collectives are explicit tensor moves: a shard's rows for another shard
 are selected by exact counts and copied to that shard's device
 (``.to(device, non_blocking=True)``, peer to peer between cards, a copy
-within the device on one card), all-gather is a concatenation, and a
+within the device on one card), all-gather is a concatenation (along any
+dimension), a permute hands each tensor to its pair's destination, and a
 reduction folds the shards' partials in shard order and copies the result
-to every shard.
+to every shard.  The LM side (``repro_torch.sharding``,
+``models.moe.moe_apply_sharded``) runs its regions over the same meshes and
+collectives.
 
 A :class:`Mesh` is an ordered axis shape and a device per shard:
 ``make_mesh({"data": 4})`` puts shard ``i`` on ``cuda:(i % device_count)``,
@@ -171,12 +174,28 @@ def all_to_all(sends: List[List[List[torch.Tensor]]], mesh: Mesh, axis: Axis) ->
     return out
 
 
-def all_gather(values: List[torch.Tensor], mesh: Mesh, axis: Axis) -> List[torch.Tensor]:
-    """Every shard's tensor concatenated over its group, on each shard."""
+def all_gather(values: List[torch.Tensor], mesh: Mesh, axis: Axis, dim: int = 0) -> List[torch.Tensor]:
+    """Every shard's tensor concatenated along ``dim`` over its group, on
+    each shard (``lax.all_gather(..., axis=dim, tiled=True)``)."""
     out: List[Optional[torch.Tensor]] = [None] * mesh.size
     for group in mesh.groups(axis):
         for dst in group:
-            out[dst] = torch.cat([_to(values[src], mesh.devices[dst]) for src in group])
+            out[dst] = torch.cat([_to(values[src], mesh.devices[dst]) for src in group], dim=dim)
+    return out
+
+
+def ppermute(values: List[torch.Tensor], mesh: Mesh, axis: Axis,
+             perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """``lax.ppermute``: within each group of ``axis``, the tensor of the
+    shard at position ``src`` moves to the shard at position ``dst`` for
+    every ``(src, dst)`` pair; a shard no pair names receives zeros."""
+    out: List[Optional[torch.Tensor]] = [None] * mesh.size
+    for group in mesh.groups(axis):
+        for src, dst in perm:
+            out[group[dst]] = _to(values[group[src]], mesh.devices[group[dst]])
+        for s in group:
+            if out[s] is None:
+                out[s] = torch.zeros_like(values[s])
     return out
 
 
@@ -206,6 +225,12 @@ def pmin(values, mesh: Mesh, axis: Axis):
 
 def pmax(values, mesh: Mesh, axis: Axis):
     return _reduce(values, "max", mesh, axis)
+
+
+def pmean(values, mesh: Mesh, axis: Axis):
+    """``psum`` over ``axis`` divided by the number of shards along it."""
+    n = mesh.axis_size(axis)
+    return [v / n for v in psum(values, mesh, axis)]
 
 
 def repartition_cols(

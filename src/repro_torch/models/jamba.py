@@ -3,7 +3,9 @@
 
 A period of ``attn_period`` (8) sub-layers: Mamba everywhere but position
 ``period // 2``, which is attention; the FFN is MoE (``models.moe``, no
-shared expert) at odd positions and a dense swiglu at even ones.  The
+shared expert) at odd positions and a dense swiglu at even ones.  Under
+``sharding.partition.use_mesh(mesh)`` the MoE FFN runs the expert-parallel
+region (``moe.moe_apply_sharded``), as the reference's does.  The
 reference scans over periods, each a remat body; the port keeps the
 periods in a list, and under grad mode each period is one
 ``torch.utils.checkpoint``, as ``lm.forward`` does.
@@ -29,6 +31,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.data.table import resolve_device
+from repro_torch.sharding.partition import current_mesh
 
 from . import common, mamba
 from . import moe as moe_mod
@@ -108,7 +111,7 @@ def _sub_apply(cfg: ArchConfig, sub: Params, x: torch.Tensor, window: int, state
     x = x + h
     f_in = common.rmsnorm(sub["ffn_norm"], x)
     if "moe" in sub:
-        f, _ = moe_mod.moe_dispatch_auto(sub["moe"], f_in, cfg)
+        f, _ = moe_mod.moe_dispatch_auto(sub["moe"], f_in, cfg, mesh=current_mesh())
     else:
         f = common.swiglu(sub["mlp"], f_in)
     return x + f, new_state

@@ -8,8 +8,11 @@ eagerly, so the layers are a list walked by a plain loop, and where a
 gradient is recorded each period of ``cfg.remat_period`` layers is one
 ``torch.utils.checkpoint`` (the reference's ``nothing_saveable`` policy:
 only the period's input is kept, the rest is recomputed in the backward).
-The reference's sharding hints (``shard_hint``, ``current_mesh``), which
-are no-ops on one device, are left out.  ``forward`` records a graph only
+Under ``sharding.partition.use_mesh(mesh)`` a MoE layer runs the
+expert-parallel region (``moe.moe_apply_sharded``) over the mesh, as the
+reference's ``current_mesh()`` routes it, in ``forward`` and
+``decode_step``; the reference's activation hints (``shard_hint``), value
+no-ops, are not called.  ``forward`` records a graph only
 under grad mode with parameters that require grad: the serving callers run
 it under ``torch.no_grad()``.
 
@@ -29,6 +32,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.data.table import resolve_device
+from repro_torch.sharding.partition import current_mesh
 
 from . import common
 from . import moe as moe_mod
@@ -108,7 +112,7 @@ def _ffn(cfg: ArchConfig, p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, Opt
     ``None`` for a dense layer)."""
     y = common.rmsnorm(p["mlp_norm"], x)
     if "moe" in p:
-        return moe_mod.moe_dispatch_auto(p["moe"], y, cfg)
+        return moe_mod.moe_dispatch_auto(p["moe"], y, cfg, mesh=current_mesh())
     return common.swiglu(p["mlp"], y), None
 
 

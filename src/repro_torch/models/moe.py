@@ -33,9 +33,16 @@ Divergences from the reference (same results):
   21.5 GB: three at once do not fit beside the rest on one card);
 * each part of ``moe_apply`` runs inside a profiler range (``RANGES``), so
   a trace splits the layer's device time;
-* the expert-parallel ``moe_apply_sharded`` (a ``shard_map`` region) comes
-  with LM sharding (``ROADMAP.md``); ``moe_dispatch_auto`` takes the dense
-  path.
+* the expert-parallel ``moe_apply_sharded`` is the reference's
+  ``shard_map`` region run by one controller over the port's mesh
+  (``exec.distributed.Mesh``): its inputs placed by
+  ``sharding.partition.shard``, the region's body once a shard in mesh
+  order, its collectives (the ZeRO gather, the ``psum`` over ``"model"``,
+  the ``pmean`` of the aux over the data axes) ``exec.distributed``'s; the
+  gather and the psum run in profiler ranges of their own
+  (``SHARDED_RANGES``), and ``moe_apply_sharded.regions`` /
+  ``.fallbacks`` count the calls that ran the region and those that took
+  the dense path.
 """
 from __future__ import annotations
 
@@ -46,12 +53,18 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from repro_torch.exec import distributed as D
+from repro_torch.sharding.partition import NamedSharding, PartitionSpec, shard
+
 from . import common
 from .common import Params
 
 #: the profiler ranges of ``moe_apply``: router and top-k, positions, the
 #: buffer scatter, the expert matmuls, the shared expert, the combine
 RANGES = ("moe.router", "moe.positions", "moe.scatter", "moe.experts", "moe.shared", "moe.combine")
+#: ``moe_apply_sharded``'s: ``RANGES`` and its collectives, the placement
+#: with the ZeRO gather of the expert stacks, and the psum over "model"
+SHARDED_RANGES = RANGES + ("moe.gather", "moe.psum")
 
 
 def _draw(generator, shape, scale: float, device, dtype: torch.dtype) -> torch.Tensor:
@@ -154,58 +167,161 @@ def moe_apply(
     B, T, d = x.shape
     N, E = B * T, n_experts
     xt = x.reshape(N, d)
-    with record_function("moe.router"):
-        logits, probs, gate_vals, experts = route(p, xt, top_k)
-
     if dispatch == "auto":
         dispatch = auto_dispatch(N * top_k, E, x.device)
-    pos_fn = positions_sort if dispatch == "sort" else positions_scatter
-
     capacity = max(8, int(capacity_factor * N * top_k / E))
-    with record_function("moe.positions"):
-        flat_e = experts.reshape(-1)  # [N*k], token-major
-        ranks = pos_fn(flat_e, E)
-        keep = ranks < capacity
-        slot = torch.where(keep, flat_e * capacity + ranks, E * capacity)
-
-    with record_function("moe.scatter"):
-        # tokens into [E, C, d] buckets; dropped ones all land on the
-        # off-range row, which is cut (so no gradient reaches them through it)
-        src = xt.repeat_interleave(top_k, dim=0) if top_k > 1 else xt
-        buf = torch.zeros((E * capacity + 1, d), dtype=x.dtype, device=x.device).index_copy(0, slot, src)
-        buf = buf[:-1].view(E, capacity, d)
-
-    with record_function("moe.experts"):
-        h = torch.bmm(buf, p["wg"])
-        hi = torch.bmm(buf, p["wi"])
-        y = torch.bmm(F.silu(h) * hi, p["wo"])
-
-    with record_function("moe.combine"):
-        # each token gathers its slot's output × its gate
-        yf = y.reshape(E * capacity, d)
-        out_flat = torch.where(keep[:, None], yf[torch.clamp(slot, max=E * capacity - 1)], 0.0)
-        contrib = out_flat * gate_vals.reshape(-1, 1).to(x.dtype)
-        out = contrib.view(N, top_k, d).sum(dim=1)
-
+    out, kept, load_balance, router_z = _local_experts(
+        p["router"], xt, p["wi"], p["wg"], p["wo"], e0=0, e_loc=E, cap=capacity, n_experts=E, top_k=top_k,
+        dispatch=dispatch)
     if "shared" in p:
         with record_function("moe.shared"):
             out = out + common.swiglu(p["shared"], xt)
-
-    # aux losses (load balance + router z), used in the training loss
-    top1 = experts[:, 0]
-    me = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
-        0, top1, torch.ones(top1.shape, dtype=torch.float32, device=x.device)) / N
-    ce = probs.mean(dim=0)
-    aux = {
-        "load_balance": E * torch.sum(me * ce),
-        "router_z": torch.logsumexp(logits, dim=-1).square().mean(),
-        "drop_fraction": 1.0 - keep.float().mean(),
-    }
+    aux = {"load_balance": load_balance, "router_z": router_z, "drop_fraction": 1.0 - kept / (N * top_k)}
     return out.view(B, T, d), aux
 
 
-def moe_dispatch_auto(p: Params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The models' entry point: the dense path, dispatch chosen by
+def _local_experts(router: torch.Tensor, xt: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor, wo: torch.Tensor, *,
+                   e0: int, e_loc: int, cap: int, n_experts: int, top_k: int, dispatch: str):
+    """The layer's body over the experts ``e0 .. e0 + e_loc`` (all of them
+    in ``moe_apply``, one shard's in the expert-parallel region): the
+    tokens ``xt [N, d]`` routed over all ``n_experts``, those of these
+    experts within capacity ``cap`` through them.  Returns (the gated
+    output ``[N, d]``, the kept (token, expert) count, the load-balance and
+    router-z aux terms)."""
+    N, d = xt.shape
+    pos_fn = positions_sort if dispatch == "sort" else positions_scatter
+    with record_function("moe.router"):
+        logits, probs, gate_vals, experts = route({"router": router}, xt, top_k)
+    with record_function("moe.positions"):
+        flat_e = experts.reshape(-1)  # [N*k], token-major
+        ranks = pos_fn(flat_e, n_experts)
+        keep = ranks < cap
+        if e_loc < n_experts:
+            keep &= (flat_e >= e0) & (flat_e < e0 + e_loc)
+        slot = torch.where(keep, (flat_e - e0) * cap + ranks, e_loc * cap)
+
+    with record_function("moe.scatter"):
+        # tokens into [e_loc, C, d] buckets; dropped ones (and, in a shard,
+        # other shards' tokens) all land on the off-range row, which is cut
+        # (so no gradient reaches them through it)
+        src = xt.repeat_interleave(top_k, dim=0) if top_k > 1 else xt
+        buf = torch.zeros((e_loc * cap + 1, d), dtype=xt.dtype, device=xt.device).index_copy(0, slot, src)
+        buf = buf[:-1].view(e_loc, cap, d)
+
+    with record_function("moe.experts"):
+        h = torch.bmm(buf, wg)
+        hi = torch.bmm(buf, wi)
+        y = torch.bmm(F.silu(h) * hi, wo)
+
+    with record_function("moe.combine"):
+        # each token gathers its slot's output × its gate
+        yf = y.reshape(e_loc * cap, d)
+        out_flat = torch.where(keep[:, None], yf[torch.clamp(slot, max=e_loc * cap - 1)], 0.0)
+        contrib = out_flat * gate_vals.reshape(-1, 1).to(xt.dtype)
+        out = contrib.view(N, top_k, d).sum(dim=1)
+
+    # aux losses (load balance + router z), used in the training loss
+    top1 = experts[:, 0]
+    me = torch.zeros((n_experts,), dtype=torch.float32, device=xt.device).index_add_(
+        0, top1, torch.ones(top1.shape, dtype=torch.float32, device=xt.device)) / N
+    load_balance = n_experts * torch.sum(me * probs.mean(dim=0))
+    router_z = torch.logsumexp(logits, dim=-1).square().mean()
+    return out, keep.float().sum(), load_balance, router_z
+
+
+# ---------------------------------------------------------------------------
+# expert-parallel MoE: the reference's shard_map region, one controller
+# ---------------------------------------------------------------------------
+#
+# The layout of the reference's region: tokens split over the data axes and
+# replicated over "model"; expert stacks split over "model" (EP = TP axis)
+# and ZeRO-split over the data axes.  Hence:
+#
+#   * dispatch = shard-local (each model shard serves its own experts for its
+#                replica of the local tokens): no communication;
+#   * weights  = one tiled all-gather over the data axes (the ZeRO gather);
+#   * combine  = one psum over "model" (each shard contributes its experts'
+#                outputs, zeros elsewhere).
+
+
+def moe_apply_sharded(
+    p: Params,
+    x: torch.Tensor,  # [B, T, d]
+    *,
+    mesh: D.Mesh,
+    n_experts: int,
+    top_k: int = 1,
+    capacity_factor: float = 1.25,
+    dispatch: str = "auto",
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``moe_apply`` as the reference's expert-parallel region over
+    ``mesh``.  Falls back to ``moe_apply`` where the reference does: no
+    ``"model"`` axis of size > 1, experts that do not divide over it, or a
+    batch that does not divide over the data axes (``"pod"``, ``"data"``).
+
+    Capacity is sized and tokens ranked per data shard, as in the
+    reference, so with a data axis other tokens drop than in ``moe_apply``
+    over the whole batch.  The output (on ``x``'s device) is the first
+    model group's data blocks in order; the aux is the reference's (load
+    balance from the top-1 experts, router z, ``1 - kept / (N_l · k)``),
+    averaged over the data shards."""
+    B, T, d = x.shape
+    E = n_experts
+    dp_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    n_model = mesh.shape.get("model", 1)
+    n_dp = mesh.axis_size(dp_axes) if dp_axes else 1
+    if n_model == 1 or E % n_model or B % n_dp:
+        moe_apply_sharded.fallbacks += 1
+        return moe_apply(p, x, n_experts=E, top_k=top_k, capacity_factor=capacity_factor, dispatch=dispatch)
+    moe_apply_sharded.regions += 1
+    e_loc = E // n_model
+    n_local = (B // n_dp) * T
+    cap = max(8, int(capacity_factor * n_local * top_k / E))
+    if dispatch == "auto":
+        dispatch = auto_dispatch(n_local * top_k, E, x.device)
+
+    xt = x.reshape(B * T, d)
+    dp = (dp_axes if len(dp_axes) > 1 else dp_axes[0]) if dp_axes else None
+
+    def placed(t, *spec):
+        return shard(t, NamedSharding(mesh, PartitionSpec(*spec)))
+
+    with record_function("moe.gather"):
+        xs, routers = placed(xt, dp, None), placed(p["router"], None, None)
+        wi, wg, wo = placed(p["wi"], "model", dp, None), placed(p["wg"], "model", dp, None), placed(
+            p["wo"], "model", None, dp)
+        if dp_axes:  # the ZeRO gather: each shard's experts whole again
+            wi, wg = D.all_gather(wi, mesh, dp_axes, dim=1), D.all_gather(wg, mesh, dp_axes, dim=1)
+            wo = D.all_gather(wo, mesh, dp_axes, dim=2)
+    model_pos = {s: i for group in mesh.groups("model") for i, s in enumerate(group)}
+    parts = [_local_experts(routers[s], xs[s], wi[s], wg[s], wo[s], e0=model_pos[s] * e_loc, e_loc=e_loc, cap=cap,
+                            n_experts=E, top_k=top_k, dispatch=dispatch) for s in range(mesh.size)]
+    del wi, wg, wo
+    with record_function("moe.psum"):
+        outs = D.psum([o for o, _, _, _ in parts], mesh, "model")
+        kept = D.psum([k for _, k, _, _ in parts], mesh, "model")
+    aux = [torch.stack([lb, rz, 1.0 - kp / (xs[s].shape[0] * top_k)])
+           for s, ((_, _, lb, rz), kp) in enumerate(zip(parts, kept))]
+    if dp_axes:
+        aux = D.pmean(aux, mesh, dp_axes)
+    first = mesh.groups(dp_axes)[0] if dp_axes else (0,)
+    out = torch.cat([outs[s].to(x.device) for s in first]).view(B, T, d)
+    if "shared" in p:
+        with record_function("moe.shared"):
+            out = out + common.swiglu(p["shared"], xt).view(B, T, d)
+    a = aux[0].to(x.device)
+    return out, {"load_balance": a[0], "router_z": a[1], "drop_fraction": a[2]}
+
+
+moe_apply_sharded.regions = 0  # calls that ran the region
+moe_apply_sharded.fallbacks = 0  # calls that took moe_apply
+
+
+def moe_dispatch_auto(p: Params, x: torch.Tensor, cfg, mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The models' entry point: the expert-parallel region under a mesh with
+    a ``"model"`` axis, else the dense path; dispatch chosen by
     ``auto_dispatch``."""
-    return moe_apply(p, x, n_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
-                     capacity_factor=cfg.moe_capacity_factor)
+    kw = dict(n_experts=cfg.moe_experts, top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor)
+    if mesh is not None and "model" in mesh.shape:
+        return moe_apply_sharded(p, x, mesh=mesh, **kw)
+    return moe_apply(p, x, **kw)

@@ -10,7 +10,9 @@
 * retention keeps the last ``keep`` committed checkpoints;
 * ``restore`` reads only the keys its ``like`` tree has (serving restores
   ``params`` from a ``params`` + ``opt`` checkpoint) and puts each leaf on
-  the named device;
+  the named device, or, with ``shardings=``, places it on a mesh as a
+  ``sharding.partition.Sharded`` of its per-shard blocks (the elastic-mesh
+  path);
 * ``AsyncSaver`` copies the tree to host memory synchronously and writes it
   from a thread, overlapping the write with the next steps.
 
@@ -33,7 +35,8 @@ import numpy as np
 import torch
 
 from repro_torch.data.table import resolve_device
-from repro_torch.models.common import tree_items, tree_map
+from repro_torch.models.common import tree_items, tree_leaves, tree_map
+from repro_torch.sharding import partition
 
 Pytree = Any
 
@@ -124,16 +127,28 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(directory: str, like: Pytree, step: Optional[int] = None,
-            device=None) -> Tuple[Pytree, Dict[str, Any]]:
+def restore(directory: str, like: Pytree, step: Optional[int] = None, device=None,
+            shardings: Optional[Pytree] = None) -> Tuple[Pytree, Dict[str, Any]]:
     """Restore into the structure of ``like`` (tensors, ``meta`` ones too):
     each leaf read by its path, its shape checked, put on ``device`` (the
     card unless another is named).  Keys the checkpoint holds and ``like``
-    lacks are not read."""
+    lacks are not read.
+
+    ``shardings`` (one ``NamedSharding`` or a tree of them shaped as
+    ``like``, e.g. ``sharding.params.param_shardings``) places each leaf on
+    its mesh instead: the leaf comes back as a ``partition.Sharded``, its
+    shards' blocks, each on its shard's device, in mesh order, beside its
+    sharding (``.unshard()`` gives the saved array back).  It cannot be
+    combined with ``device``."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no committed checkpoint under {directory}")
-    dev = resolve_device(device)
+    if shardings is not None and device is not None:
+        raise ValueError("restore takes device= or shardings=, not both")
+    if isinstance(shardings, partition.NamedSharding):
+        shardings = tree_map(lambda _: shardings, like)
+    dev = resolve_device(device) if shardings is None else None
+    shard_list = None if shardings is None else tree_leaves(shardings)
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
@@ -146,6 +161,6 @@ def restore(directory: str, like: Pytree, step: Optional[int] = None,
                 t = t.view(torch.bfloat16)
             if tuple(t.shape) != tuple(leaf.shape):
                 raise ValueError(f"checkpoint {path}: {key} has shape {tuple(t.shape)}, expected {tuple(leaf.shape)}")
-            leaves.append(t.to(dev))
+            leaves.append(t.to(dev) if shard_list is None else partition.Sharded.place(t, shard_list[len(leaves)]))
     it = iter(leaves)
     return tree_map(lambda _: next(it), like), meta

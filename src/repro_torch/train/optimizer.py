@@ -7,8 +7,9 @@
   (grad + error carry) to int8, one scale a tensor of the reference's
   layout (a parameter's layers together), and keeps the quantization
   residual as the next step's carry.  The single-process form round-trips
-  the quantizer; the distributed form (``compressed_psum``) comes with LM
-  sharding (ROADMAP.md).
+  the quantizer; the distributed form (``compressed_psum``) sums the
+  shards' int8 payloads (dequantized, in shard order) over a mesh axis of
+  ``exec.distributed``, each shard keeping its own carry.
 
 The reference's update is functional and donates its inputs to XLA, which
 reuses their buffers; the port updates ``params`` and the state's tensors
@@ -126,6 +127,41 @@ def compress_grads(grads: Pytree, ef: Pytree) -> Tuple[Pytree, Pytree, Dict[str,
     codes, stats = _compress_into(grads, tree_leaves(carry))
     it = iter(codes)
     return tree_map(lambda _: _dequantize(*next(it)), grads), carry, stats
+
+
+def compressed_psum(grads: List[Pytree], ef: List[Pytree], mesh, axis) -> Tuple[List[Pytree], List[Pytree]]:
+    """The distributed form over ``mesh``'s ``axis``: ``grads[s]`` and
+    ``ef[s]`` are shard ``s``'s gradient and carry trees.  Each shard
+    quantizes ``g + e`` to int8 codes (one scale a leaf of the reference's
+    layout, as ``compress_grads``), the codes times their scales are summed
+    over the axis in shard order (``exec.distributed.psum``), and the new
+    carry is ``(g + e) - dequantize(codes)``.  Returns (the summed
+    gradients, the new carries), per shard."""
+    from repro_torch.exec import distributed as D
+
+    flat_g = [tree_leaves(g) for g in grads]
+    flat_e = [tree_leaves(e) for e in ef]
+    summed: List[List[torch.Tensor]] = [[None] * len(flat_g[0]) for _ in grads]
+    carries: List[List[torch.Tensor]] = [[None] * len(flat_g[0]) for _ in grads]
+    for idx in _scale_groups(grads[0]):
+        payload: List[List[torch.Tensor]] = [[] for _ in grads]
+        for s in range(len(grads)):
+            targets = [flat_g[s][i] + flat_e[s][i] for i in idx]
+            amax = torch.stack([t.abs().max() for t in targets]).max()
+            for i, t in zip(idx, targets):
+                deq = _dequantize(*_quantize(t, amax))  # the int8 payload times its scale
+                payload[s].append(deq)
+                carries[s][i] = t - deq
+        for k, i in enumerate(idx):
+            for s, v in enumerate(D.psum([payload[s][k] for s in range(len(grads))], mesh, axis)):
+                summed[s][i] = v
+    return [_unflatten(grads[0], v) for v in summed], [_unflatten(grads[0], c) for c in carries]
+
+
+def _unflatten(like: Pytree, leaves: List[torch.Tensor]) -> Pytree:
+    """``leaves`` in the structure of ``like``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
 
 
 # ---------------------------------------------------------------------------

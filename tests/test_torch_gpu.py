@@ -52,7 +52,11 @@ whisper's encoder and cross shapes (1,500 frames; 448 and 1 queries over
 them); its gradient runs non-causal with Tq != Tk and at D = 160; a reduced
 whisper (encoder, decoder self and cross attention) and a reduced pixtral
 at D = 160 with patches forward on the card against the CPU, one launch an
-attention call, and whisper's decode launches once a layer a step.
+attention call, and whisper's decode launches once a layer a step.  The
+LM sharding runs with every shard on the card: the expert-parallel MoE
+region on a (data 2, model 4) mesh against ``moe_apply`` per data half and
+the CPU's region, the ring all-gather matmul against ``X @ W``, and
+``compressed_psum`` against the float sum.
 """
 import contextlib
 import dataclasses
@@ -1689,3 +1693,71 @@ def test_encdec_and_vlm_forward_on_card(cuda, arch, act_dtype, monkeypatch):
             g, dc = whisper.decode_step(cfg, dev_params, dc, toks[:, t].to(cuda))
             assert fa.flash_attention.launches == cfg.n_layers
             torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("top_k, shared", [(1, True), (2, False)])
+def test_moe_apply_sharded_on_card(cuda, top_k, shared, monkeypatch):
+    """The expert-parallel region on an 8-shard (data 2, model 4) mesh, every
+    shard on the card: the output equals ``moe_apply`` run on each data
+    half (the region sizes capacity per data shard), the region ran (no
+    fallback), and its result equals the CPU's region."""
+    from repro_torch.exec import distributed as D
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator().manual_seed(top_k)
+    p = moe.moe_init(g, 64, 128, 16, shared, "cpu")
+    x = torch.randn((4, 300, 64), generator=g)
+    kw = dict(n_experts=16, top_k=top_k, dispatch="scatter")
+    dev_p = common.tree_map(lambda t: t.to(cuda), p)
+    mesh = D.make_mesh({"data": 2, "model": 4})
+    assert all(d.type == "cuda" for d in mesh.devices)
+    regions = moe.moe_apply_sharded.regions
+    got, aux = moe.moe_apply_sharded(dev_p, x.to(cuda), mesh=mesh, **kw)
+    assert moe.moe_apply_sharded.regions == regions + 1
+    want = torch.cat([moe.moe_apply(dev_p, h, **kw)[0] for h in x.to(cuda).split(2)])
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    cpu_got, cpu_aux = moe.moe_apply_sharded(p, x, mesh=D.make_mesh({"data": 2, "model": 4}, device="cpu"), **kw)
+    torch.testing.assert_close(got.cpu(), cpu_got, rtol=1e-4, atol=1e-4)
+    for key in ("load_balance", "router_z", "drop_fraction"):
+        assert float(aux[key]) == pytest.approx(float(cpu_aux[key]), rel=1e-5, abs=1e-6), key
+
+
+def test_ring_allgather_matmul_on_card(cuda, monkeypatch):
+    """The ring over 4 shards on the card equals the gathered product and
+    ``X @ W`` (float32)."""
+    from repro_torch.exec import distributed as D
+    from repro_torch.sharding import overlap, partition
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator().manual_seed(0)
+    X, W = torch.randn((512, 96), generator=g).to(cuda), torch.randn((96, 80), generator=g).to(cuda)
+    mesh = D.make_mesh({"tp": 4})
+    xs = partition.shard(X, partition.NamedSharding(mesh, partition.P("tp", None)))
+    ring = overlap.ring_allgather_matmul(xs, W, mesh, "tp")
+    gathered = overlap.allgather_matmul_reference(xs, W, mesh, "tp")
+    for r, a in zip(ring, gathered):
+        assert r.device.type == "cuda"
+        torch.testing.assert_close(r, a, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(r, X @ W, rtol=1e-4, atol=1e-4)
+
+
+def test_compressed_psum_on_card(cuda):
+    """``compressed_psum`` over 4 shards on the card: within the int8 bound
+    of the float sum (tests/test_distributed.py:109), carries bit for bit,
+    and equal to the CPU's on the same trees."""
+    from repro_torch.exec import distributed as D
+    from repro_torch.train import optimizer as opt
+
+    g = torch.Generator().manual_seed(0)
+    grads = [{"w": torch.randn((64, 32), generator=g), "b": torch.randn((32,), generator=g)} for _ in range(4)]
+    ef = [{k: torch.randn(v.shape, generator=g) * 1e-3 for k, v in t.items()} for t in grads]
+    on = lambda trees: [{k: v.to(cuda) for k, v in t.items()} for t in trees]
+    summed, carries = opt.compressed_psum(on(grads), on(ef), D.make_mesh({"data": 4}), "data")
+    cpu_summed, cpu_carries = opt.compressed_psum(grads, ef, D.make_mesh({"data": 4}, device="cpu"), "data")
+    for k in ("w", "b"):
+        want = sum(t[k] for t in grads)
+        assert float((summed[0][k].cpu() - want).abs().max() / want.abs().max()) < 0.05
+        torch.testing.assert_close(summed[0][k].cpu(), cpu_summed[0][k], rtol=1e-6, atol=1e-6)
+        for s in range(4):
+            target = grads[s][k].to(cuda) + ef[s][k].to(cuda)
+            assert torch.equal(carries[s][k], target - opt._dequantize(*opt._quantize(target)))
