@@ -272,7 +272,9 @@ Phases (any failure exits non-zero):
    the reference's per-step loop) in bf16 and float32 at jamba's width (1 ×
    8,192 × 16,384 × 16), an unaligned T, one step with a carried state and
    d_state 4 (y and h_T within SCAN_TOL at cosine >= 0.9999), the
-   full-width launch timed beside its byte bound and its twin; the
+   full-width launch timed beside its byte bound and its twin, with the
+   launch geometry of ``selective_scan.launch_geometry`` (threads a
+   channel, warps, warps an SM); the
    reference's reduced rwkv6 and jamba (``tests/data/
    torch_recurrent_reduced.npz``, float32) through the card path (the scan
    kernel, the FMA attention kernel at D = 16): forward logits and 8 decode
@@ -2212,15 +2214,18 @@ def recurrent_phase(torch, dev, src, smi):
                 out["scan_err"] = max(out["scan_err"], err)
             if case == SCAN_SHAPES[0]:
                 nbytes, nops = scan_bytes_ops(case, dtype.itemsize)
+                geom, sms = SS.launch_geometry(case[0], case[2], case[3]), torch.cuda.get_device_properties(0).multi_processor_count
                 row.update(ms=timed(torch, lambda: SS.selective_scan(*args), 5), plain_ms=plain_s * 1e3,
                            bytes=nbytes, ops=nops, bound_ms=bound_ms(nbytes, nops),
-                           blocks=-(-case[2] // SS.BLOCK) * case[0])
+                           blocks=geom.blocks_x * geom.blocks_y, threads_a_channel=geom.group, warps=geom.warps,
+                           warps_an_sm=geom.warps / sms)
             out["scan"].append(row)
             print(f"selective scan B={case[0]} T={case[1]} d_in={case[2]} ds={case[3]}"
                   f"{' h0' if case[4] else ''} {row['dtype']}: max |kernel - twin| y {row['y_max_abs_err']:.3g} "
                   f"(cosine {row['y_cos']:.7f}), h_T {row['h_T_max_abs_err']:.3g} (cosine {row['h_T_cos']:.7f})"
-                  + (f"; kernel {row['ms']:.3f} ms ({row['blocks']} blocks of {SS.BLOCK} channels for "
-                     f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs), twin {row['plain_ms']:.1f} ms, "
+                  + (f"; kernel {row['ms']:.3f} ms ({row['blocks']} blocks of {SS.BLOCK} channels, "
+                     f"{row['threads_a_channel']} threads a channel, {row['warps']} warps, {row['warps_an_sm']:.1f} "
+                     f"an SM for {sms} SMs), twin {row['plain_ms']:.1f} ms, "
                      f"bound {row['bound_ms']:.3f} ms (bytes)" if "ms" in row else ""))
             del args, got, want
     out["scan_row"] = out["scan"][0]  # bf16 at jamba's width: the kernels line

@@ -20,22 +20,33 @@ with ``exp(dt·A)``, ``dt·x`` and ``(dt·x)·b`` rounded to the input dtype
 where the reference's operands in that dtype round them, and ``h`` and the
 sum in float32; so kernel and twin differ only in float32 summation order.
 
-The kernel: one thread a (batch row, channel) keeps ``h[ds]`` and its row
-of ``A`` in registers (``ds`` a template parameter over :data:`D_STATES`);
-a block of :data:`BLOCK` channels walks time in tiles of :data:`TILE`
-steps, staging the tile's ``Bt`` / ``Ct`` rows (shared by every channel of
-the batch row) and its own ``dt`` / ``x`` columns in shared memory, read
-and written coalesced.
+The kernel (the design and its reasons are in the source's header): a
+group of ``ds / STATES`` threads serves one (batch row, channel), each
+thread keeping :data:`STATES` lanes of ``h`` and of ``A`` in registers (a
+warp's threads hold the same lanes of 32 channels), the group's partial
+``y`` added in shared memory; a block of :data:`BLOCK`
+channels walks time in tiles of :data:`TILE` steps through a two-stage
+``cp.async`` ring, so the next tile's ``dt`` / ``x`` columns and ``Bt`` /
+``Ct`` rows arrive while the current one is consumed, and ``y`` leaves a
+tile at a time in 16-byte stores.  :func:`launch_geometry` computes the
+launch (threads a channel, blocks, the padded width) for the wrapper, the
+tests and ``chip_smoke.py``.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import build
 
 D_STATES = (4, 8, 16)
-BLOCK = 128  # channels a block (csrc/selective_scan.cu)
-TILE = 32  # time steps a block stages at once
+STATES = 4  # state lanes a thread (csrc/selective_scan.cu)
+BLOCK = 64  # channels a block
+TILE = 32  # time steps a tile of the ring
+ALIGN = 8  # the kernel's width is d_in padded to this many channels: whole 16-byte chunks
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _MAX_GRID_Y = 65535
 
@@ -61,6 +72,64 @@ def selective_scan_plain(xc, dt, Bt, Ct, A, h0=None):
         ys.append((h * Ct[:, t, None, :].float()).sum(-1))
     y = torch.stack(ys, dim=1) if ys else torch.zeros((B, 0, d_in), dtype=torch.float32, device=xc.device)
     return y, h
+
+
+class Geometry(NamedTuple):
+    """One launch: ``group`` threads a channel, each holding ``states``
+    lanes; blocks of ``threads`` threads over ``channels`` channels,
+    ``blocks_x`` along the (padded) ``width`` and one a batch row
+    (``blocks_y``)."""
+
+    group: int
+    states: int
+    channels: int
+    threads: int
+    tile: int
+    blocks_x: int
+    blocks_y: int
+    width: int
+
+    @property
+    def warps(self) -> int:
+        return self.blocks_x * self.blocks_y * self.threads // 32
+
+
+def launch_geometry(B: int, d_in: int, ds: int) -> Geometry:
+    """The kernel's launch at ``[B, T, d_in]`` streams and ``ds`` states
+    (``T`` only sets the number of tiles each block walks)."""
+    _check(ds in D_STATES, f"state size {ds} is not one of {D_STATES}")
+    group = ds // STATES
+    width = -(-d_in // ALIGN) * ALIGN
+    return Geometry(group, STATES, BLOCK, BLOCK * group, TILE, -(-width // BLOCK), B, width)
+
+
+def block_lanes(geom: Geometry):
+    """``(channel in the block, first state)`` of each thread of a block, as
+    the kernel computes them from ``threadIdx.x``: warp ``w`` holds state
+    lanes ``(w % G) · STATES ..`` of 32 consecutive channels from ``32 ·
+    (w // G)``.  Block ``(x, y)`` serves batch row ``y`` and channels from
+    ``x · BLOCK``."""
+    tid = np.arange(geom.threads)
+    warp = tid // 32
+    return tid % 32 + 32 * (warp // geom.group), (warp % geom.group) * geom.states
+
+
+def pad_channels(width: int, xc, dt, A, h0=None):
+    """``xc``, ``dt``, ``A`` and ``h0`` with zero channels appended up to
+    ``width``: a padded channel's state stays zero and its outputs are cut
+    off, so the real channels are untouched."""
+    pad = width - xc.shape[-1]
+    if pad == 0:
+        return xc, dt, A, h0
+    return (F.pad(xc, (0, pad)), F.pad(dt, (0, pad)), F.pad(A, (0, 0, 0, pad)),
+            None if h0 is None else F.pad(h0, (0, 0, 0, pad)))
+
+
+def _aligned(t):
+    """``t`` contiguous and at a 16-byte aligned address (the kernel's
+    vector loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 _LIB = {}
@@ -99,19 +168,22 @@ def selective_scan(xc, dt, Bt, Ct, A, h0=None):
     _check(h0 is None or (h0.shape == (B, d_in, ds) and h0.dtype == torch.float32),
            f"h0 must be float32 [B, d_in, ds], got {None if h0 is None else (tuple(h0.shape), h0.dtype)}")
     _check(B <= _MAX_GRID_Y, "too many batch rows")
-    xc, dt, Bt, Ct = (t.contiguous() for t in (xc, dt, Bt, Ct))
-    A = A.float().contiguous()
-    y = torch.empty((B, T, d_in), dtype=torch.float32, device=dev)
-    h_T = torch.empty((B, d_in, ds), dtype=torch.float32, device=dev)
+    geom = launch_geometry(B, d_in, ds)
+    xc, dt, A, h0 = pad_channels(geom.width, xc, dt, A.float(), h0)
+    xc, dt, Bt, Ct, A = (_aligned(t) for t in (xc, dt, Bt, Ct, A))
     if h0 is not None:
-        h0 = h0.contiguous()
+        h0 = _aligned(h0)
+    y = torch.empty((B, T, geom.width), dtype=torch.float32, device=dev)
+    h_T = torch.empty((B, geom.width, ds), dtype=torch.float32, device=dev)
     build.launch(
         _launcher(),
         [xc.data_ptr(), dt.data_ptr(), Bt.data_ptr(), Ct.data_ptr(), A.data_ptr(),
          0 if h0 is None else h0.data_ptr(), y.data_ptr(), h_T.data_ptr()],
-        [B, T, d_in, ds, _DTYPE_CODE[xc.dtype]],
+        [B, T, geom.width, ds, _DTYPE_CODE[xc.dtype], geom.blocks_x, geom.threads],
         torch.cuda.current_stream(dev).cuda_stream,
     )
+    if geom.width != d_in:
+        y, h_T = y[..., :d_in].contiguous(), h_T[:, :d_in].contiguous()
     _SS.launches += 1
     return y, h_T
 

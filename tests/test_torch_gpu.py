@@ -42,7 +42,9 @@ bitwise equal.  A 2-shard session runs q3 and q18 at TPC-H SF 0.01 on the
 card against the resident session and numpy, every launch of its warm run
 held against its twin.  The selective-scan kernel runs bfloat16 and float32
 at d_state 4, 8 and 16 against its twin (a carried state, T = 1, ragged
-time tiles and channel blocks, strided B / C), refuses what it does not take
+time tiles and channel blocks, strided B / C; its two-stage ring wrapped
+with a ragged tail, a width one channel past a block, every d_state with
+B > 1, 64 steps at jamba's width), refuses what it does not take
 and training through it, and reduced rwkv6 and jamba forwards and decode
 steps on the card follow the CPU's, the scan kernel launched once a Mamba
 sub-layer.  The flash-attention kernel also runs pixtral's head dim 160
@@ -1549,9 +1551,14 @@ def test_sharded_session_on_card(cuda, shard_db, qname):
 
 
 # (B, T, d_in, ds, carried): jamba's d_state, ragged time tiles and channel
-# blocks, one step with a carried state, the smaller state sizes
+# blocks, one step with a carried state, the smaller state sizes; the
+# redesign's edges: the ring wrapping with a ragged tail (2·TILE + 5 steps),
+# a width one channel past a block (BLOCK + 1), every d_state with B > 1,
+# 64 steps at jamba's width
 SCAN_CASES = [(1, 300, 384, 16, False), (2, 77, 200, 16, True), (1, 1, 130, 16, True), (3, 33, 64, 4, True),
-              (1, 64, 129, 8, False)]
+              (1, 64, 129, 8, False), (2, 2 * ssk.TILE + 5, 200, 16, True), (2, 40, ssk.BLOCK + 1, 16, False),
+              (2, 2 * ssk.TILE + 5, 1000, 4, False), (3, 50, 136, 8, True), (2, 19, 72, 16, False),
+              (1, 64, 16384, 16, True)]
 
 
 def _scan_inputs(case, dtype, cuda, seed=0):
