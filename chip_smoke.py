@@ -274,7 +274,13 @@ Phases (any failure exits non-zero):
    d_state 4 (y and h_T within SCAN_TOL at cosine >= 0.9999), the
    full-width launch timed beside its byte bound and its twin, with the
    launch geometry of ``selective_scan.launch_geometry`` (threads a
-   channel, warps, warps an SM); the
+   channel, warps, warps an SM); at the same cases and dtypes, with a
+   random dy and, where carried, dh_T, the backward kernel
+   (``csrc/selective_scan_bwd.cu``) against ``selective_scan_backward_plain``:
+   dx, ddt, dB, dC, dA and dh0 within SCAN_BWD_TOL of the largest gradient
+   at cosine >= 0.9999, two launches bitwise equal, the full-width launch
+   timed beside its bound and its twin, its ``-Xptxas -v`` report and
+   dynamic shared memory; the
    reference's reduced rwkv6 and jamba (``tests/data/
    torch_recurrent_reduced.npz``, float32) through the card path (the scan
    kernel, the FMA attention kernel at D = 16): forward logits and 8 decode
@@ -294,9 +300,22 @@ Phases (any failure exits non-zero):
    prefill each (one scan or attention launch), its profile and peak
    memory, 16 teacher-forced decode steps against its rows (cosine >=
    0.99), sub4 at 1 × 65,536 with ``window=4096`` (one launch) and a decode
-   step into a 4,096-slot ring at len 524,288; ``python -m
+   step into a 4,096-slot ring at len 524,288; jamba's sub0 trained at
+   full width (about 1.02·10⁹ float32 masters, bf16 activations, 1 × 8,192,
+   the mean square of the output, backward, ``apply_updates``): with the
+   counts at 0 one step (one forward and one backward scan launch), finite
+   gradients, its wall, a profiled step (scan forward, scan backward,
+   matmuls, optimizer, idle share) and peak memory; at 1 × 512 every
+   gradient leaf against the same step through the twin's autograd (cosine
+   >= STEP_GRAD_COS); the reduced jamba (float32, the scan kernels, the FMA
+   attention kernel at D = 16) through ``Trainer`` for 3 steps against a
+   CPU ``Trainer`` on the same batches (losses within REC_TRAINER_RTOL,
+   finite grad norms, the launches a step); ``python -m
    repro_torch.launch.serve --arch rwkv6-3b --reduced`` and ``--arch
-   jamba-1.5-large-398b --reduced`` in the background (see 16);
+   jamba-1.5-large-398b --reduced`` in the background (see 16), and
+   ``python -m repro_torch.launch.train --arch jamba-1.5-large-398b
+   --reduced --steps 3`` and ``--arch rwkv6-3b`` beside them: finite, each
+   checkpoint restored at step 3 here;
 19. (after 18, before 13's line) whisper and pixtral on the card: the
    wgmma and FMA kernels' ``-Xptxas -v`` report at D = 160 and the wgmma
    kernel's shared memory there (phase 9 held D = 160 and whisper's shapes
@@ -415,6 +434,10 @@ BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 # 35 ms warm call (one jamba sub-layer's prefill)
 WARM_CALL = "chip_smoke.warm_call"
 WARM_LAUNCHES = 2000
+# the range of one launch queued after the warm call has finished on the
+# device: what starts after it counts (a training step's backward kernels
+# come from autograd's thread, outside WARM_CALL's range)
+WARM_END = "chip_smoke.warm_end"
 # words in the names of the matmul kernels (cuBLAS / CUTLASS) in a trace
 MATMUL_WORDS = ("gemm", "xmma", "cutlass", "nvjet", "sm90_")
 LM_ARCH, LM_SEED = "llama3.2-3b", 0
@@ -530,6 +553,22 @@ SCAN_TOL, SCAN_COS = 1e-4, 0.9999
 # step with a carried state, the smallest state size
 SCAN_SHAPES = [(1, 8192, 16384, 16, False), (1, 777, 16384, 16, True), (4, 1, 16384, 16, True),
                (2, 300, 1000, 4, True)]
+# the backward kernel against its twin on the same inputs: float32 within
+# this share of the largest gradient (summation order), bf16 within one bf16
+# step of it (a sum taken in another order flips a rounding); cosine >= SCAN_COS
+SCAN_BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0**-7}
+SCAN_BWD_NAMES = ("dx", "ddt", "dB", "dC", "dA", "dh0")
+# jamba's sub0 (Mamba + swiglu) trained at full width: one step at 1 x REC_T;
+# its gradients at a cut T where the twin's autograd fits, against the same
+# step through the twin, each leaf at cosine >= STEP_GRAD_COS
+REC_TRAIN_CUT_T, STEP_GRAD_COS = 512, 0.99
+# the reduced jamba through Trainer on the card against the CPU's (float32):
+# steps, global batch x sequence, the losses' rtol (the reduced llama's,
+# tests/test_torch_gpu.py)
+REC_TRAINER_STEPS, REC_TRAINER_BATCH, REC_TRAINER_RTOL = 3, (2, 40), 1e-4
+# the launchers trained at the reduced configs in the background (phase 18's,
+# started with phase 17's and joined there), each to a checkpoint at step 3
+REC_LAUNCH_STEPS = 3
 # the chip fixture's configs (tests/test_torch_jamba.py: FIXTURE_CFGS)
 REC_FIXTURE = {"rwkv": (REC_RWKV, dict(d_model=32, n_layers=2)),
                "jamba": (REC_JAMBA, dict(d_model=32, n_layers=4, n_kv_heads=2))}
@@ -1462,9 +1501,10 @@ def train_profile(torch, fn, ranges, warm=False):
     the device's kernel intervals inside the range's device-side span.
     ``warm`` first runs a burst of ``WARM_LAUNCHES`` one-element launches
     and ``fn`` once more in the window, and only what starts after them
-    counts: late in a run the profiler loses the first kernels of a window
-    (PERF.md §6), at times more than a short call launches, and the warm
-    call takes the loss."""
+    (after a marker launch queued once they have finished) counts: late in
+    a run the profiler loses the first kernels of a window (PERF.md §6), at
+    times more than a short call launches, and the warm call takes the
+    loss."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1476,13 +1516,18 @@ def train_profile(torch, fn, ranges, warm=False):
                     x.add_(1)
                 fn()
             torch.cuda.synchronize()
+            with record_function(WARM_END):
+                x.add_(1)
+            torch.cuda.synchronize()
         _, step_s = wall(torch, fn)
     events = list(prof.events())
     lo_host = lo_dev = float("-inf")
-    if warm:  # the warm call's kernels all end before the measured call's start
-        ends = {kind: [e.time_range.end for e in events if e.name == WARM_CALL and e.device_type == kind]
+    if warm:  # the warm call's kernels, from every thread, end before the marker's
+        check(any(e.name == WARM_CALL and e.device_type == DeviceType.CUDA for e in events),
+              "the profiler recorded no span of the warm call")
+        ends = {kind: [e.time_range.end for e in events if e.name == WARM_END and e.device_type == kind]
                 for kind in (DeviceType.CPU, DeviceType.CUDA)}
-        check(all(ends.values()), "the profiler recorded no span of the warm call")
+        check(all(ends.values()), "the profiler recorded no span of the warm call's end marker")
         lo_host, lo_dev = max(ends[DeviceType.CPU]), max(ends[DeviceType.CUDA])
     kernels = [(e.time_range.start, e.time_range.end, e.name) for e in events
                if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
@@ -1506,6 +1551,7 @@ def train_profile(torch, fn, ranges, warm=False):
            "matmul_ms": named_ms(MATMUL_WORDS),
            "selective_scan_kernel_ms": named_ms(("selective_scan_kernel",)),
            "selective_scan_kernel_calls": sum(1 for _, _, n in kernels if "selective_scan_kernel" in n),
+           "selective_scan_bwd_ms": named_ms(("selective_scan_bwd",)),
            "top_device": [{"op": n[:60], "device_ms": ms, "calls": c} for n, (ms, c) in top]}
     for r in ranges:
         spans = union((e.time_range.start, e.time_range.end) for e in events
@@ -2171,18 +2217,37 @@ def scan_bytes_ops(case, esz):
     return nbytes, B * T * d_in * (7 * ds + 1)
 
 
-def recurrent_phase(torch, dev, src, smi):
+def scan_bwd_bytes_ops(case, esz):
+    """What one backward must move and compute: x, dt, B, C, A, dy (float32)
+    and, when carried, h0 and dh_T read once; dx, ddt, dB, dC, dA and (when
+    carried) dh0 written once.  Operations: 20 a state lane a step (the
+    forward's dt·A, its exp, (dt·x)·b and update recomputed for h; dL/dh,
+    the dC and dB terms and their sums, Σ_n du·B, dz, Σ_n dz·A, dA and the
+    carry) and 4 a channel a step (dt·x, dx, ddt)."""
+    B, T, d_in, ds, carried = case
+    nbytes = (4 * B * T * d_in * esz + B * T * d_in * 4 + 4 * B * T * ds * esz + 2 * d_in * ds * 4
+              + B * d_in * ds * 4 * (3 if carried else 0))
+    return nbytes, B * T * d_in * (20 * ds + 4)
+
+
+def recurrent_phase(torch, dev, src, smi, launched=None):
     """The sub-quadratic families on the card: the selective-scan kernel
     against its twin and timed; the reference's reduced rwkv6 and jamba
     through the card path; rwkv6-3b whole at its published widths
     (prefill, profile, a bf16 cut against float32, decode, ``long_500k``,
     the ``Server``); jamba's full-width sub-layers one at a time (prefill,
     profile, decode, the windowed attention at 65,536 tokens and a
-    4,096-slot ring at 524,288)."""
+    4,096-slot ring at 524,288); the scan's backward kernel against its
+    twin and timed; sub0 trained at full width, its gradients at a cut T
+    against the twin's autograd; the reduced jamba through ``Trainer``
+    against the CPU's; ``launched``: ``{arch: checkpoint directory}`` of the
+    background training launchers, whose step-3 checkpoints are checked."""
     import torch.nn.functional as F
 
     from repro_torch import configs
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops as KOPS
     from repro_torch.kernels import selective_scan as SS
     from repro_torch.models import common as MC
     from repro_torch.models import jamba as JB
@@ -2196,8 +2261,11 @@ def recurrent_phase(torch, dev, src, smi):
     t_phase = time.perf_counter()
     root = os.path.dirname(src)
 
-    stamp("18. recurrent: the selective-scan kernel against its twin")
-    out["scan"], out["scan_err"] = [], 0.0
+    stamp("18. recurrent: the selective-scan kernels (forward, backward) against their twins")
+    out["scan"], out["scan_err"], out["scan_bwd"], out["scan_bwd_err"] = [], 0.0, [], 0.0
+    bwd_lib = build.load("selective_scan_bwd", (build.CSRC / "selective_scan_bwd.cu").read_text())
+    bwd_lib.selective_scan_backward_smem.argtypes = [ctypes.c_int]
+    bwd_lib.selective_scan_backward_smem.restype = ctypes.c_int
     for i, case in enumerate(SCAN_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             args = scan_inputs(torch, dev, case, dtype, 200 + i)
@@ -2227,8 +2295,54 @@ def recurrent_phase(torch, dev, src, smi):
                      f"{row['threads_a_channel']} threads a channel, {row['warps']} warps, {row['warps_an_sm']:.1f} "
                      f"an SM for {sms} SMs), twin {row['plain_ms']:.1f} ms, "
                      f"bound {row['bound_ms']:.3f} ms (bytes)" if "ms" in row else ""))
-            del args, got, want
+            del got, want
+
+            # the backward kernel on the same inputs: random dy and, where the
+            # case carries a state, dh_T; two launches bitwise equal
+            B, T, d_in, ds, carried = case
+            g = torch.Generator(device=dev).manual_seed(400 + i)
+            dy = torch.randn((B, T, d_in), generator=g, device=dev)
+            dh_T = torch.randn((B, d_in, ds), generator=g, device=dev) if carried else None
+            got = SS.selective_scan_backward(*args, dy, dh_T)
+            again = SS.selective_scan_backward(*args, dy, dh_T)
+            torch.cuda.synchronize()
+            want, plain_s = wall(torch, lambda: SS.selective_scan_backward_plain(*args, dy, dh_T))
+            brow = {"shape": list(case[:4]), "carried": carried, "dtype": row["dtype"]}
+            tol = SCAN_BWD_TOL[row["dtype"]]
+            for name, gk, ga, w in zip(SCAN_BWD_NAMES, got, again, want):
+                if w is None:
+                    continue
+                check(torch.equal(gk, ga), f"two backward launches at {case} {dtype} differ in {name}")
+                check(gk.dtype == w.dtype and gk.shape == w.shape, f"the backward's {name} at {case} {dtype} is "
+                      f"{gk.dtype} {tuple(gk.shape)}, its twin's {w.dtype} {tuple(w.shape)}")
+                gf, wf = gk.float(), w.float()
+                err, scale = float((gf - wf).abs().max()), float(wf.abs().max())
+                cos = float(F.cosine_similarity(gf.flatten(), wf.flatten(), dim=0))
+                check(bool(torch.allclose(gf, wf, rtol=tol, atol=tol * scale)) and cos >= SCAN_COS,
+                      f"the backward kernel's {name} at {case} {dtype} is {err} off its twin (largest "
+                      f"{scale}, cosine {cos})")
+                brow[f"{name}_max_abs_err"], brow[f"{name}_max"], brow[f"{name}_cos"] = err, scale, cos
+                out["scan_bwd_err"] = max(out["scan_bwd_err"], err)
+            if case == SCAN_SHAPES[0]:
+                nbytes, nops = scan_bwd_bytes_ops(case, dtype.itemsize)
+                brow.update(ms=timed(torch, lambda: SS.selective_scan_backward(*args, dy, dh_T), 5),
+                            plain_ms=plain_s * 1e3, bytes=nbytes, ops=nops, bound_ms=bound_ms(nbytes, nops),
+                            bytes_ms=1e3 * nbytes / HBM_BYTES_PER_S, ops_ms=1e3 * nops / FP32_OPS_PER_S,
+                            smem_bytes=bwd_lib.selective_scan_backward_smem(ds))
+            out["scan_bwd"].append(brow)
+            print(f"selective scan backward B={B} T={T} d_in={d_in} ds={ds}{' h0, dh_T' if carried else ''} "
+                  f"{brow['dtype']}: two launches bitwise equal; max |kernel - twin| (largest |twin|, cosine) "
+                  + ", ".join(f"{n} {brow[n + '_max_abs_err']:.3g} ({brow[n + '_max']:.3g}, {brow[n + '_cos']:.7f})"
+                              for n in SCAN_BWD_NAMES if n + "_cos" in brow)
+                  + (f"; kernel {brow['ms']:.3f} ms (two launches: the walk, the fixed-order sums; "
+                     f"{brow['smem_bytes']} B of dynamic shared memory a block), twin {brow['plain_ms']:.1f} ms, "
+                     f"bound {brow['bound_ms']:.3f} ms (bytes {brow['bytes_ms']:.3f}, operations "
+                     f"{brow['ops_ms']:.3f}; the SFU's 2.15e9 exponentials at one a lane-step 0.51)"
+                     if "ms" in brow else ""))
+            del args, got, again, want, dy, dh_T
     out["scan_row"] = out["scan"][0]  # bf16 at jamba's width: the kernels line
+    out["scan_bwd_row"] = out["scan_bwd"][0]
+    kernel_ptxas(build, "selective_scan_bwd", ("selective_scan_bwd_kernel", "selective_scan_bwd_sum_kernel"))
 
     stamp("18. recurrent: the reference's reduced rwkv6 and jamba through the card path")
     with np.load(os.path.join(root, "tests", "data", "torch_recurrent_reduced.npz")) as f:
@@ -2348,7 +2462,7 @@ def recurrent_phase(torch, dev, src, smi):
           == (8192, 64, 8, 128, 16384, 16, 4, 24576, 16, 2, 8, 4096), f"{REC_JAMBA} is not at its published widths")
     gen = torch.Generator(device=dev).manual_seed(LM_SEED)
     positions = torch.arange(REC_T, device=dev)
-    out["jamba"], launches = {}, {"selective_scan": 0, "flash_attention": 0}
+    out["jamba"], launches = {}, {"selective_scan": 0, "selective_scan_backward": 0, "flash_attention": 0}
     for i in REC_SUBS:
         torch.cuda.reset_peak_memory_stats()
         sub = JB._sub_init(cfg, i, gen, dev, torch.bfloat16)
@@ -2422,6 +2536,152 @@ def recurrent_phase(torch, dev, src, smi):
         del sub, x
         gc.collect()
         torch.cuda.empty_cache()
+    stamp(f"18. recurrent: {REC_JAMBA} sub0 trained at full width, 1 x {REC_T}")
+    from repro_torch.data.lm_data import StreamConfig, batch_at
+    from repro_torch.models.registry import get_model_by_name
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import train_loop as TL
+    from repro_torch.train.optimizer import OptConfig, apply_updates, init_state
+
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    masters = MC.tree_map(lambda t: t.requires_grad_(), JB._sub_init(cfg, 0, gen, dev, torch.float32))
+    leaves = MC.tree_leaves(masters)
+    opt = OptConfig(lr=3e-4, warmup_steps=20, total_steps=1000)  # launch.train's at 1,000 steps
+    opt_state = init_state(masters, opt)
+    x = torch.randn((1, REC_T, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    tr = out["train_sub0"] = {"kind": "mamba + swiglu", "params": sum(t.numel() for t in leaves)}
+
+    def sub0_grads(xx):
+        """The loss (the mean square of sub0's output, bf16 activations from
+        float32 masters) and its gradients into the masters' ``.grad``."""
+        for p in leaves:
+            p.grad = None
+        y = JB._sub_apply(cfg, MC.cast_tree(masters, torch.bfloat16), xx, 0,
+                          positions=torch.arange(xx.shape[1], device=dev))[0]
+        loss = y.float().square().mean()
+        loss.backward()
+        return loss.detach()
+
+    def train_step():
+        loss = sub0_grads(x)
+        with torch.profiler.record_function(TL.OPTIMIZER_RANGE):
+            _, _, metrics = apply_updates(masters, opt_state, MC.tree_map(lambda p: p.grad, masters), opt)
+        return loss, metrics
+
+    with torch.enable_grad():
+        _, tr["cold_s"] = wall(torch, train_step)
+        SS.selective_scan.launches = SS.selective_scan_backward.launches = 0  # the main path: one step
+        (loss, metrics), tr["step_s"] = wall(torch, train_step)
+        seen = {"selective_scan": SS.selective_scan.launches,
+                "selective_scan_backward": SS.selective_scan_backward.launches}
+        check(seen == {"selective_scan": 1, "selective_scan_backward": 1},
+              f"sub0's training step launched the scan kernels {seen} times, not once each")
+        for k, n in seen.items():
+            launches[k] += n
+        tr.update(loss=float(loss), grad_norm=float(metrics["grad_norm"]), launches=seen)
+        check(all(bool(torch.isfinite(p.grad).all()) for p in leaves) and np.isfinite([tr["loss"], tr["grad_norm"]]).all(),
+              "sub0's training step is not finite")
+        tr["profile"] = prof = train_profile(torch, train_step, (TL.OPTIMIZER_RANGE,), warm=True)
+    tr["peak_bytes"] = torch.cuda.max_memory_allocated()
+    parts = {"scan forward": prof["selective_scan_kernel_ms"], "scan backward": prof["selective_scan_bwd_ms"],
+             "matmuls": prof["matmul_ms"], "optimizer": prof[f"{TL.OPTIMIZER_RANGE}_ms"]}
+    parts["the rest"] = prof["device_busy_ms"] - sum(parts.values())
+    tr["parts_ms"] = parts
+    print(f"{REC_JAMBA} sub0 ({tr['kind']}, {tr['params']} parameters) trained at 1 x {REC_T}: float32 masters, "
+          f"bf16 activations, the mean square of the output, backward, apply_updates (AdamW in place); loss "
+          f"{tr['loss']:.6g}, grad norm {tr['grad_norm']:.6g}, finite; launches {seen}; step cold "
+          f"{tr['cold_s']:.2f}s, warm {tr['step_s'] * 1e3:.1f} ms; profiled: wall {prof['step_ms']:.1f} ms, busy "
+          f"{prof['device_busy_ms']:.1f}, idle share {prof['device_idle_share']:.3f}; device ms "
+          + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+          + f"; peak max_memory_allocated {tr['peak_bytes'] / 2**30:.2f} GiB ({before / 2**30:.2f} allocated "
+          f"before the masters) on {smi}")
+
+    stamp(f"18. recurrent: sub0's gradients at 1 x {REC_TRAIN_CUT_T}, the kernels against the twin's autograd")
+    xcut = x[:, :REC_TRAIN_CUT_T]
+    with torch.enable_grad():
+        sub0_grads(xcut)
+        kern = {k: p.grad.clone() for k, p in MC.tree_items(masters)}
+        routed, n_fwd = KOPS.selective_scan, SS.selective_scan.launches
+        KOPS.selective_scan = SS.selective_scan_plain  # the twin, differentiated by autograd
+        try:
+            sub0_grads(xcut)
+        finally:
+            KOPS.selective_scan = routed
+        check(SS.selective_scan.launches == n_fwd, "the twin's step launched the scan kernel")
+    cos = {k: (1.0 if not (kern[k].any() or p.grad.any()) else
+               float(F.cosine_similarity(kern[k].flatten(), p.grad.flatten(), dim=0)))
+           for k, p in MC.tree_items(masters)}
+    tr["cut_grad_cos"] = cos
+    worst = min(cos, key=cos.get)
+    check(cos[worst] >= STEP_GRAD_COS, f"sub0's {worst} gradient through the kernels is at cosine {cos[worst]} to "
+          f"the twin's")
+    print(f"sub0 at 1 x {REC_TRAIN_CUT_T}: every gradient leaf through the scan kernels against the same step "
+          f"through the twin's autograd: least cosine {cos[worst]:.6f} ({worst}; >= {STEP_GRAD_COS}), "
+          + ", ".join(f"{k} {v:.6f}" for k, v in cos.items()))
+    del masters, leaves, opt_state, x, xcut, kern
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    stamp(f"18. recurrent: reduced {REC_JAMBA} through Trainer, the card against the CPU")
+    init = get_model_by_name(REC_JAMBA, reduced=True, device="cpu").init(torch.Generator().manual_seed(0))
+    runs = out["trainer"] = {}
+    for label, where in (("cpu", "cpu"), ("card", dev)):
+        m = get_model_by_name(REC_JAMBA, reduced=True, device=where)
+        scfg = StreamConfig(vocab=m.cfg.vocab, global_batch=REC_TRAINER_BATCH[0], seq_len=REC_TRAINER_BATCH[1])
+        t = TL.Trainer(m, TL.TrainConfig(steps=REC_TRAINER_STEPS, log_every=1000,
+                                         opt=OptConfig(lr=1e-3, warmup_steps=1, total_steps=REC_TRAINER_STEPS)), scfg)
+        t.save = lambda step: None  # the launchers check checkpoints
+        t.params = MC.tree_map(lambda p: p.to(where, copy=True).requires_grad_(), init)
+        t.opt_state = init_state(t.params, t.tcfg.opt)
+        SS.selective_scan.launches = SS.selective_scan_backward.launches = FA.flash_attention.launches = 0
+        with torch.enable_grad():
+            log = t.run()
+        runs[label] = {"losses": [r["loss"] for r in log], "grad_norms": [r["grad_norm"] for r in log],
+                            "launches": {"selective_scan": SS.selective_scan.launches,
+                                         "selective_scan_backward": SS.selective_scan_backward.launches,
+                                         "flash_attention": FA.flash_attention.launches}}
+    check(all(torch.equal(batch_at(scfg, i, "cpu")["tokens"], batch_at(scfg, i, dev)["tokens"].cpu())
+              for i in range(REC_TRAINER_STEPS)), "the card's batches are not the CPU's")
+    cfg_r = m.cfg
+    n_mamba = cfg_r.n_layers // cfg_r.attn_period * (cfg_r.attn_period - 1)
+    want = {"selective_scan": REC_TRAINER_STEPS * 2 * n_mamba, "selective_scan_backward": REC_TRAINER_STEPS * n_mamba,
+            "flash_attention": REC_TRAINER_STEPS * 2 * (cfg_r.n_layers // cfg_r.attn_period)}
+    card, host = runs["card"], runs["cpu"]
+    check(card["launches"] == want and not any(host["launches"].values()),
+          f"the reduced Trainer launched {card['launches']} on the card, not {want}")
+    for k, n in card["launches"].items():
+        launches[k] += n
+    check(np.isfinite(card["grad_norms"]).all() and np.allclose(card["losses"], host["losses"], rtol=REC_TRAINER_RTOL,
+                                                                  atol=0),
+          f"the reduced Trainer's losses {card['losses']} on the card are not the CPU's {host['losses']}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], host["losses"]))
+    print(f"reduced {REC_JAMBA} ({cfg_r.n_layers} layers, d_model {cfg_r.d_model}, float32; the scan kernels, the "
+          f"FMA attention kernel at D = {cfg_r.hd}) through Trainer, {REC_TRAINER_STEPS} steps at "
+          f"{REC_TRAINER_BATCH[0]} x {REC_TRAINER_BATCH[1]} on the CPU's batches: losses "
+          + " ".join(f"{v:.6f}" for v in card["losses"]) + " (CPU " + " ".join(f"{v:.6f}" for v in host["losses"])
+          + f"; largest relative difference {rel:.3g}, rtol {REC_TRAINER_RTOL}); grad norms "
+          + " ".join(f"{v:.4f}" for v in card["grad_norms"]) + f"; launches {card['launches']}")
+
+    if launched:
+        stamp("18. recurrent: the reduced launchers' checkpoints")
+        out["launchers"] = {}
+        for arch, d in launched.items():
+            step = CKPT.latest_step(d)
+            m = get_model_by_name(arch, reduced=True, device=dev)
+            t = TL.Trainer(m, TL.TrainConfig(ckpt_dir=d), StreamConfig(vocab=m.cfg.vocab, global_batch=8, seq_len=256))
+            check(step == REC_LAUNCH_STEPS and t.restore_or_init() == REC_LAUNCH_STEPS,
+                  f"launch.train --arch {arch} left its last checkpoint at step {step}, not {REC_LAUNCH_STEPS}")
+            n = sum(p.numel() for p in MC.tree_leaves(t.params))
+            check(all(bool(torch.isfinite(p).all()) for p in MC.tree_leaves(t.params)),
+                  f"launch.train --arch {arch}'s checkpointed parameters are not finite")
+            out["launchers"][arch] = {"step": step, "params": n}
+            print(f"python -m repro_torch.launch.train --arch {arch} --reduced --steps {REC_LAUNCH_STEPS} (in the "
+                  f"background beside phase 17, on the card): its step-0 loss and grad norm finite, a checkpoint "
+                  f"at step {step}, its {n} parameters restored finite")
+            del t
+
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t_phase
     print(f"recurrent phase: {out['seconds']:.1f}s on {smi}")
@@ -4411,7 +4671,7 @@ def main() -> int:
     stamp("2. build")
     t0 = time.perf_counter()
     static = ("merge_lookup", "segment_reduce", "decode", "flash_attention", "hash_probe", "sorted_lookup", "hash_build",
-              "selective_scan")
+              "selective_scan", "selective_scan_bwd")
     with ThreadPoolExecutor(max_workers=len(static)) as pool:
         for lib in pool.map(lambda name: build.load(name, (build.CSRC / f"{name}.cu").read_text()), static):
             check(lib is not None, "a static kernel did not load")
@@ -5089,6 +5349,10 @@ def main() -> int:
     shutil.rmtree(ck, ignore_errors=True)
     py = shlex.quote(sys.executable)
     served = re.compile(r"^\[serve\] 16 requests, 256 tokens, ")
+    trained = re.compile(r"^step +0  loss [0-9.]+  gnorm [0-9.]+  ")  # finite: nan and inf do not match
+    rec_ck = {arch: os.path.join(os.path.dirname(src), "build", "launch_train", arch) for arch in (REC_JAMBA, REC_RWKV)}
+    for d in rec_ck.values():
+        shutil.rmtree(d, ignore_errors=True)
     background = start_launchers(src, [
         (f"python -m repro_torch.launch.train --arch {LM_ARCH} --reduced --steps 3, then launch.serve from its "
          "checkpoint",
@@ -5099,6 +5363,12 @@ def main() -> int:
         *((f"python -m repro_torch.launch.serve --arch {arch} --reduced",
            [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--reduced"],
            lambda lines: bool(served.match(lines[-1]))) for arch in (REC_RWKV, REC_JAMBA, WSP_ARCH, PIX_ARCH)),
+        # phase 18's training launchers: checked for their checkpoints there
+        *((f"python -m repro_torch.launch.train --arch {arch} --reduced --steps {REC_LAUNCH_STEPS}",
+           [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--reduced", "--steps",
+            str(REC_LAUNCH_STEPS), "--ckpt-dir", d],
+           lambda lines, arch=arch: lines[0] == f"[launch.train] {arch} from step 0"
+           and any(trained.match(line) for line in lines)) for arch, d in rec_ck.items()),
     ])
 
     # -- 17. the MoE family: llama4 scout and maverick at their published widths
@@ -5110,9 +5380,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 18. the sub-quadratic families: rwkv6-3b whole, jamba's sub-layers ----
-    with torch.no_grad():  # inference: no graph
-        rec = recurrent_phase(torch, dev, src, smi)
+    with torch.no_grad():  # inference: no graph (the training checks enable their own)
+        rec = recurrent_phase(torch, dev, src, smi, rec_ck)
     launches["recurrent"] = rec["launches"]
+    for d in rec_ck.values():
+        shutil.rmtree(d, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5133,7 +5405,8 @@ def main() -> int:
     # -- 13. the kernels' line --------------------------------------------------
     fa8k = lm["fa_rows"][0]
     total = {name: sum(path.get(name, 0) for path in launches.values())
-             for name in [name for _, name in kernels_of_path] + ["decode", "flash_attention", "selective_scan"]
+             for name in [name for _, name in kernels_of_path] + ["decode", "flash_attention", "selective_scan",
+                                                                  "selective_scan_backward"]
              + dict_names}
 
     def entry(name, source, replaces, rows, err, library_ms):
@@ -5200,6 +5473,10 @@ def main() -> int:
         # replaces the reference's lax.scan over time (no pallas_call)
         entry("selective_scan", "src/repro_torch/kernels/csrc/selective_scan.cu", "src/repro/models/mamba.py:95",
               [rec["scan_row"]], rec["scan_err"], None),
+        # its gradient at the same shape and dtype (the walk and the fixed-order
+        # sums); the reference's is JAX's autodiff of that lax.scan
+        entry("selective_scan_backward", "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+              "src/repro/models/mamba.py:95", [rec["scan_bwd_row"]], rec["scan_bwd_err"], None),
     ]
     print(json.dumps({"regions": regions, "merge_lookups": ml_rows, "merge_lookup_ptxas": ml_ptxas,
                       "sorted_lookup_ptxas": inst["sorted_ptxas"], "fused_ptxas": fused_ptx,

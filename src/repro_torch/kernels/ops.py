@@ -24,7 +24,9 @@ empty table, as the reference's does), and ``ht_twochoice`` and
 ``st_blocked`` (no reference kernel).
 
 The Mamba layers reach :func:`selective_scan`, a kernel with no
-``pallas_call`` behind it (the reference's ``lax.scan`` over time).
+``pallas_call`` behind it (the reference's ``lax.scan`` over time), and in
+training on the card its backward kernel (the reference's autodiff of that
+scan).
 """
 from __future__ import annotations
 
@@ -104,12 +106,12 @@ def flash_attention(q, k, v, *, causal=True, window=0, kv_valid=None) -> torch.T
 
 def selective_scan(xc, dt, Bt, Ct, A, h0=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(y, h_T)`` of a Mamba layer's scan (``kernels/selective_scan.py``):
-    the kernel on CUDA tensors, its twin on CPU tensors.  The kernel has no
-    backward: under grad mode with a CUDA input that requires grad it
-    raises (training the hybrid on the card is a later slice, ROADMAP.md);
-    on the CPU the twin is differentiable."""
+    the kernel on CUDA tensors, its twin on CPU tensors.  Under grad mode
+    with a CUDA input that requires grad (training), through
+    :class:`~repro_torch.kernels.selective_scan.SelectiveScanFn`: the kernel
+    forward and the backward kernel, first-order only; on the CPU autograd
+    runs through the twin."""
     if xc.is_cuda and torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (xc, dt, Bt, Ct, A, h0)):
-        raise NotImplementedError("selective_scan: the kernel has no backward; training the hybrid on the card "
-                                  "waits for its slice (ROADMAP.md)")
+        return _ss.SelectiveScanFn.apply(xc, dt, Bt, Ct, A, h0)
     return _ss.selective_scan(xc, dt, Bt, Ct, A, h0)

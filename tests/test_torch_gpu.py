@@ -44,10 +44,14 @@ held against its twin.  The selective-scan kernel runs bfloat16 and float32
 at d_state 4, 8 and 16 against its twin (a carried state, T = 1, ragged
 time tiles and channel blocks, strided B / C; its two-stage ring wrapped
 with a ragged tail, a width one channel past a block, every d_state with
-B > 1, 64 steps at jamba's width), refuses what it does not take
-and training through it, and reduced rwkv6 and jamba forwards and decode
-steps on the card follow the CPU's, the scan kernel launched once a Mamba
-sub-layer.  The flash-attention kernel also runs pixtral's head dim 160
+B > 1, 64 steps at jamba's width) and refuses what it does not take;
+its backward kernel runs the same cases against its twin, two launches
+bitwise equal, refuses what the forward refuses and a second-order
+gradient; a reduced jamba trains 3 steps on the card (the scan kernel in
+the forward and the remat recompute, the backward kernel once a Mamba
+sub-layer), its losses following the CPU's; reduced rwkv6 and jamba
+forwards and decode steps on the card follow the CPU's, the scan kernel
+launched once a Mamba sub-layer.  The flash-attention kernel also runs pixtral's head dim 160
 (its layer at 2,048, unaligned, non-causal, Tq < Tk; the wgmma kernel over
 the same lengths as at D = 64 and 128, strided heads bit for bit) and
 whisper's encoder and cross shapes (1,500 frames; 448 and 1 queries over
@@ -1597,8 +1601,86 @@ def test_selective_scan_kernel_refuses_what_it_does_not_take(cuda):
         ssk.selective_scan(xc, dt.to(torch.bfloat16), Bt, Ct, A)
     with pytest.raises(ValueError, match="h0"):
         ssk.selective_scan(xc, dt, Bt, Ct, A, torch.zeros((1, 64, 16), device=cuda, dtype=torch.bfloat16))
+    dy = torch.zeros((1, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match="state size"):
+        ssk.selective_scan_backward(xc, dt, Bt[..., :5], Ct[..., :5], A[:, :5], None, dy)
+    with pytest.raises(ValueError, match="bfloat16 or all float32"):
+        ssk.selective_scan_backward(xc, dt.to(torch.bfloat16), Bt, Ct, A, None, dy)
+    with pytest.raises(ValueError, match="dy must be float32"):
+        ssk.selective_scan_backward(xc, dt, Bt, Ct, A, None, dy.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="dh_T"):
+        ssk.selective_scan_backward(xc, dt, Bt, Ct, A, None, dy, torch.zeros((1, 64, 8), device=cuda))
+    # the backward kernel is first-order: a second-order gradient is refused
+    x = xc.clone().requires_grad_()
+    y, _ = kops.selective_scan(x, dt, Bt, Ct, A)
+    (first,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        kops.selective_scan(xc.requires_grad_(), dt, Bt, Ct, A)
+        torch.autograd.grad(first.sum(), x)
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_selective_scan_backward_kernel_matches_plain(cuda, case, dtype):
+    """The backward kernel against its twin on the same inputs and output
+    gradients (``dh_T`` where the case carries a state): one launch counted,
+    two launches bitwise equal, each gradient in its input's dtype; float32
+    within 1e-5 of the largest gradient (summation order), bf16 within one
+    bf16 step (2^-7) of it where a sum in another order flips a rounding,
+    cosine >= 0.9999 in both."""
+    args = _scan_inputs(case, dtype, cuda, seed=1)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    B, T, d_in, ds, carried = case
+    dy = torch.randn((B, T, d_in), generator=g, device=cuda)
+    dh_T = torch.randn((B, d_in, ds), generator=g, device=cuda) if carried else None
+    ssk.selective_scan_backward.launches = 0
+    got = ssk.selective_scan_backward(*args, dy, dh_T)
+    again = ssk.selective_scan_backward(*args, dy, dh_T)
+    torch.cuda.synchronize()
+    assert ssk.selective_scan_backward.launches == 2
+    want = ssk.selective_scan_backward_plain(*args, dy, dh_T)
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-7
+    for name, a, b, w in zip(("dx", "ddt", "dB", "dC", "dA", "dh0"), got, again, want):
+        if w is None:
+            assert a is None and b is None, name
+            continue
+        assert torch.equal(a, b), name
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(a.float(), w.float(), rtol=tol, atol=tol * scale, msg=name)
+        cos = float(torch.nn.functional.cosine_similarity(a.float().flatten(), w.float().flatten(), dim=0))
+        assert cos >= 0.9999 or scale == 0.0, (name, cos)
+
+
+def test_jamba_training_on_card_launches_the_scan_kernels(cuda, tmp_path, monkeypatch):
+    """A reduced jamba (float32) trains 3 steps on the card from the CPU's
+    initial weights and stream: each step launches the scan kernel once a
+    Mamba sub-layer in the forward and once in its period's remat recompute,
+    the backward kernel once a Mamba sub-layer, and the losses follow the
+    CPU's."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    from repro_torch.data.lm_data import StreamConfig
+    from repro_torch.models.common import tree_map
+    from repro_torch.train.optimizer import OptConfig, init_state
+    from repro_torch.train.train_loop import TrainConfig, Trainer
+
+    arch = "jamba-1.5-large-398b"
+    init = get_model_by_name(arch, reduced=True, device="cpu").init(torch.Generator().manual_seed(0))
+    losses, launches = {}, {}
+    for dev in ("cpu", "cuda"):
+        m = get_model_by_name(arch, reduced=True, device=dev)
+        t = Trainer(m, TrainConfig(steps=3, ckpt_dir=str(tmp_path / dev), ckpt_async=False, log_every=1000,
+                                   opt=OptConfig(lr=1e-3, warmup_steps=1, total_steps=3)),
+                    StreamConfig(vocab=m.cfg.vocab, global_batch=2, seq_len=40))
+        t.params = tree_map(lambda p: p.to(dev, copy=True).requires_grad_(), init)
+        t.opt_state = init_state(t.params, t.tcfg.opt)
+        ssk.selective_scan.launches = ssk.selective_scan_backward.launches = 0
+        log = t.run()
+        losses[dev] = [x["loss"] for x in log]
+        assert all(np.isfinite(x["grad_norm"]) for x in log)
+        launches[dev] = (ssk.selective_scan.launches, ssk.selective_scan_backward.launches)
+    n_mamba = m.cfg.n_layers // m.cfg.attn_period * (m.cfg.attn_period - 1)
+    assert launches == {"cpu": (0, 0), "cuda": (3 * 2 * n_mamba, 3 * n_mamba)}
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])

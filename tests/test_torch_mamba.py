@@ -11,8 +11,9 @@ config: d 64, d_inner 128), at rtol 1e-4 / atol 1e-5:
 * ``selective_scan_plain`` in bfloat16 against the reference's step body
   run by JAX on the same bfloat16 streams (its rounding points);
 * ``apply`` as a whole and token by token from ``init_state``;
-* the wrapper: CPU tensors take the twin and count no launch; the dispatch
-  refuses a CUDA input that requires grad before it reaches the kernel.
+* the wrapper: CPU tensors take the twin and count no launch; a CUDA input
+  that requires grad goes through ``SelectiveScanFn``, whose gradients are
+  the twin's and whose second-order gradient is refused.
 
 The kernel itself runs on the card (``tests/test_torch_gpu.py -k
 selective_scan``).
@@ -153,12 +154,38 @@ def test_apply_whole_and_stepwise_match_reference():
 
 
 def test_selective_scan_refuses_a_cuda_input_that_requires_grad(monkeypatch):
-    """The dispatch refuses training through the kernel before any launch:
-    a stand-in for a CUDA tensor reaches the check without a card."""
-    x = torch.zeros((1, 2, 4), requires_grad=True)
+    """A CUDA call under grad mode goes through ``SelectiveScanFn`` (the
+    kernel forward, the backward kernel), whose gradient is first-order: its
+    gradients equal the twin's autograd, and a second-order gradient through
+    it is refused with ``NotImplementedError`` naming ROADMAP.md (the
+    reference's ``lax.scan`` differentiates twice; the card's port does not
+    yet).  Stand-ins for CUDA tensors reach the dispatch without a card; the
+    forward and backward launchers are replaced by their plain twins."""
+    rng = np.random.default_rng(8)
+    B, T, d_in, ds = 2, 21, 8, 4
+    streams = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.normal(size=(B, T, d_in)), np.log1p(np.exp(rng.normal(size=(B, T, d_in)) - 2)),
+        rng.normal(size=(B, T, ds)), rng.normal(size=(B, T, ds)), -np.tile(np.arange(1, ds + 1), (d_in, 1)))]
+    h0 = torch.from_numpy(rng.normal(size=(B, d_in, ds)).astype(np.float32))
+
+    def loss(fn, leaves):
+        y, h_T = fn(*leaves)
+        return y.square().sum() + h_T.sum()
+
+    plain = [t.clone().requires_grad_() for t in (*streams, h0)]
+    want = torch.autograd.grad(loss(ss.selective_scan_plain, plain), plain)
+    monkeypatch.setattr(ss, "selective_scan", ss.selective_scan_plain)
+    monkeypatch.setattr(ss, "selective_scan_backward", ss.selective_scan_backward_plain)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    leaves = [t.clone().requires_grad_() for t in (*streams, h0)]
+    y, _ = kops.selective_scan(*leaves)
+    assert type(y.grad_fn).__name__ == "SelectiveScanFnBackward"
+    got = torch.autograd.grad(loss(kops.selective_scan, leaves), leaves)
+    for g, w in zip(got, want):
+        close(g, w.numpy(), rtol=1e-5, atol=1e-5 * float(w.abs().max()))
+    first = torch.autograd.grad(loss(kops.selective_scan, leaves), leaves[0], create_graph=True)[0]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        kops.selective_scan(x, x, torch.zeros((1, 2, 4)), torch.zeros((1, 2, 4)), torch.zeros((4, 4)))
+        torch.autograd.grad(first.sum(), leaves[0])
 
 
 def test_selective_scan_is_differentiable_on_the_cpu():

@@ -3,7 +3,7 @@
 ``sys.path`` on one CUDA card, at the shapes of the port's main paths;
 print one JSON line.
 
-    PYTHONPATH=src python3 tools/scan_timings.py [--label NAME] [--sass DIR]
+    PYTHONPATH=src python3 tools/scan_timings.py [--label NAME] [--sass DIR] [--backward]
 
 Two checkouts compare by running the script once with each one's ``src``
 on ``PYTHONPATH``, in one run on one card (A, B, B, A): the wrapper's
@@ -35,6 +35,23 @@ for the bf16 and float32 kernels at d_state 16, the instructions of the
 innermost loop that holds the most ``MUFU.EX2``: each lane-step runs one
 exponential, so instructions / ``MUFU.EX2`` is the loop's instructions a
 lane-step.
+
+``--backward`` also times the backward kernel (``selective_scan_backward``:
+the walk and the fixed-order sums) on the same inputs with a random ``dy``
+and, where the shape carries a state, ``dh_T``, each result first held
+against ``selective_scan_backward_plain`` (float32 within 1e-5 of the
+largest gradient, bf16 within 2^-7 of it, cosine >= 0.9999; ~12 s of twin
+at jamba's width); ``bwd_bound_ms`` is the larger of its bytes (x, dt, B,
+C, A, dy and h0, dh_T read, dx, ddt, dB, dC, dA and dh0 written once) at
+3.35 TB/s and its operations (20 a lane-step, 4 a channel-step) at 67
+TFLOP/s.  With ``--sass`` the backward library's SASS goes to
+``DIR/scan_bwd_sass_<label>.txt``, and its count a lane-step adds the two
+loops that hold exponentials, each loop's own instructions (its nested
+loops' taken out) over its lane-steps: the first pass (one ``MUFU.EX2`` a
+lane-step) and the chunk walk (two: the recompute and the walk back).
+``--set`` then also reaches ``csrc/selective_scan_bwd.cu``'s constants
+(``CHUNK`` excepted: the wrapper sizes its checkpoints by ``BWD_TILE``;
+``MIN_BLOCKS``, the blocks an SM its registers are budgeted for).
 """
 from __future__ import annotations
 
@@ -51,7 +68,9 @@ import torch.nn.functional as F
 SHAPES = [(1, 8192, 16384, 16, False), (1, 777, 16384, 16, True), (4, 1, 16384, 16, True),
           (2, 300, 1000, 4, True)]
 TOL, COS = 1e-4, 0.9999
+BWD_TOL = {"bfloat16": 2.0**-7, "float32": 1e-5}
 HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 SASS_KERNELS = {"bfloat16": "Li16E13__nv_bfloat16E", "float32": "Li16EfE"}
 
 
@@ -93,6 +112,38 @@ def bound_ms(case, esz):
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def bwd_bound_ms(case, esz):
+    """``chip_smoke.scan_bwd_bytes_ops``'s bytes and operations, as time."""
+    B, T, d_in, ds, carried = case
+    nbytes = (4 * B * T * d_in * esz + B * T * d_in * 4 + 4 * B * T * ds * esz + 2 * d_in * ds * 4
+              + B * d_in * ds * 4 * (3 if carried else 0))
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, B * T * d_in * (20 * ds + 4) / FP32_OPS_PER_S)
+
+
+def bwd_inputs(dev, case, seed):
+    B, T, d_in, ds, carried = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dy = torch.randn((B, T, d_in), generator=g, device=dev)
+    return dy, (torch.randn((B, d_in, ds), generator=g, device=dev) if carried else None)
+
+
+def check_backward(SS, inputs, dy, dh_T, case, dtype):
+    """Max |kernel - twin| over the gradients; exits where one is off."""
+    err, tol = 0.0, BWD_TOL[str(dtype).split(".")[-1]]
+    got = SS.selective_scan_backward(*inputs, dy, dh_T)
+    for name, g, w in zip(("dx", "ddt", "dB", "dC", "dA", "dh0"), got,
+                          SS.selective_scan_backward_plain(*inputs, dy, dh_T)):
+        if w is None:
+            continue
+        g, w = g.float(), w.float()
+        cos = float(F.cosine_similarity(g.flatten(), w.flatten(), dim=0))
+        if not (torch.allclose(g, w, rtol=tol, atol=tol * float(w.abs().max())) and cos >= COS):
+            raise SystemExit(f"scan_timings: the backward's {name} at {case} {dtype} is "
+                             f"{float((g - w).abs().max())} off its twin (cosine {cos})")
+        err = max(err, float((g - w).abs().max()))
+    return err
+
+
 def check(SS, inputs, case, dtype):
     """Max |kernel - twin| over y and h_T; exits where either is off."""
     err = 0.0
@@ -126,16 +177,64 @@ def innermost_loops(sass):
     return out
 
 
-def sass_counts(label, out_dir):
+def own_loops(sass):
+    """``[(instructions, MUFU.EX2 count)]`` of each loop of one function's
+    SASS (a target and its furthest backward branch), the instructions of
+    the loops nested in it taken out."""
+    ins = []
+    for line in sass.splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2)))
+    ends = {}
+    for addr, text in ins:
+        m = re.search(r"\bBRA(?:\.\S+)?\s+(0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) <= addr:
+            lo = int(m.group(1), 16)
+            ends[lo] = max(ends.get(lo, addr), addr)
+    loops = sorted(ends.items())
+    out = []
+    for lo, hi in loops:
+        inner = [o for o in loops if o != (lo, hi) and lo <= o[0] and o[1] <= hi]
+        body = [t for a, t in ins if lo <= a <= hi and not any(i <= a <= j for i, j in inner)]
+        out.append((len(body), sum("MUFU.EX2" in t for t in body)))
+    return out
+
+
+def library_sass(backward, label, out_dir, stem):
+    """The functions of the last loaded forward (or backward) library's SASS,
+    which is also written to ``out_dir``."""
     from repro_torch.kernels import build
 
-    libs = [p for p in build._LOADED if os.path.basename(p).startswith("selective_scan")]
+    libs = [p for p in build._LOADED if os.path.basename(p).startswith("selective_scan")
+            and os.path.basename(p).startswith("selective_scan_bwd") == backward]
     cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     text = subprocess.run([cuobjdump, "-sass", libs[-1]], capture_output=True, text=True, check=True).stdout
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"scan_sass_{label or 'tree'}.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{stem}_{label or 'tree'}.txt"), "w") as f:
         f.write(text)
-    funcs = re.split(r"\n\s*Function : ", text)
+    return re.split(r"\n\s*Function : ", text)
+
+
+def bwd_sass_counts(label, out_dir):
+    """The backward walk's instructions a lane-step at d_state 16: the loop
+    with the most exponentials is the chunk walk (two a lane-step), the
+    next the first pass (one)."""
+    funcs = library_sass(True, label, out_dir, "scan_bwd_sass")
+    counts = {}
+    for dtype, key in SASS_KERNELS.items():
+        body = next(f for f in funcs if f.startswith("_Z") and "selective_scan_bwd_kernel" in f.split("\n", 1)[0]
+                    and key in f.split("\n", 1)[0])
+        (walk_n, walk_ex2), (first_n, first_ex2) = sorted(
+            [lp for lp in own_loops(body) if lp[1] > 0], key=lambda lp: -lp[1])[:2]
+        counts[dtype] = {"walk_instructions": walk_n, "walk_mufu_ex2": walk_ex2, "first_pass_instructions": first_n,
+                         "first_pass_mufu_ex2": first_ex2,
+                         "per_lane_step": first_n / first_ex2 + walk_n / (walk_ex2 / 2)}
+    return counts
+
+
+def sass_counts(label, out_dir):
+    funcs = library_sass(False, label, out_dir, "scan_sass")
     counts = {}
     for dtype, key in SASS_KERNELS.items():
         body = next(f for f in funcs if f.startswith("_Z") and "selective_scan_kernel" in f.split("\n", 1)[0]
@@ -156,6 +255,7 @@ def main() -> int:
                     help="rebuild the kernel with this constexpr int changed")
     ap.add_argument("--shapes", default=None, help="comma-separated indices into the shape list")
     ap.add_argument("--unchecked", action="store_true", help="time without holding results against the twin")
+    ap.add_argument("--backward", action="store_true", help="time the backward kernel beside the forward")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("scan_timings: no CUDA device")
@@ -163,14 +263,22 @@ def main() -> int:
     from repro_torch.kernels import selective_scan as SS
 
     if args.set:
-        src = (build.CSRC / "selective_scan.cu").read_text()
+        files = {"fn": ("selective_scan.cu", "selective_scan_launch")}
+        if args.backward:
+            files["bwd"] = ("selective_scan_bwd.cu", "selective_scan_backward_launch")
+        srcs = {k: (build.CSRC / f).read_text() for k, (f, _) in files.items()}
         for item in args.set:
             name, value = item.split("=")
-            src, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {int(value)};", src)
-            if n != 1:
-                raise SystemExit(f"scan_timings: no constexpr int {name} in selective_scan.cu")
+            hits = 0
+            for k in srcs:
+                srcs[k], n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {int(value)};", srcs[k])
+                hits += n
+            if hits == 0 or name == "CHUNK":
+                raise SystemExit(f"scan_timings: no constexpr int {name} to set in {[f for f, _ in files.values()]}")
         tag = "_".join(s.replace("=", "") for s in args.set)
-        SS._LIB["fn"] = build.launcher(build.load(f"selective_scan_{tag}", src), "selective_scan_launch")
+        for k, (f, symbol) in files.items():
+            stem = f[:-3]
+            SS._LIB[k] = build.launcher(build.load(f"{stem}_{tag}", srcs[k]), symbol)
     shapes = SHAPES if args.shapes is None else [SHAPES[int(i)] for i in args.shapes.split(",")]
 
     dev = torch.device("cuda:0")
@@ -188,14 +296,25 @@ def main() -> int:
             if hasattr(SS, "launch_geometry"):
                 geom = SS.launch_geometry(case[0], case[2], case[3])
                 row.update(threads_a_channel=geom.group, warps=geom.warps, blocks=geom.blocks_x * geom.blocks_y)
+            if args.backward:
+                dy, dh_T = bwd_inputs(dev, case, args.seed + 100 + i)
+                berr = None if args.unchecked else check_backward(SS, args_, dy, dh_T, case, dtype)
+                row.update(bwd_ms=device_ms(lambda: SS.selective_scan_backward(*args_, dy, dh_T), args.reps),
+                           bwd_max_abs_err=berr, bwd_bound_ms=bwd_bound_ms(case, dtype.itemsize))
+                del dy, dh_T
             rows.append(row)
             print(f"{args.label} scan {case} {row['dtype']}: {row['ms']:.4f} ms (bound {row['bound_ms']:.4f}), "
-                  f"max |kernel - twin| {err}", flush=True)
+                  f"max |kernel - twin| {err}" + (f"; backward {row['bwd_ms']:.4f} ms (bound "
+                                                  f"{row['bwd_bound_ms']:.4f}), max |kernel - twin| "
+                                                  f"{row['bwd_max_abs_err']}" if args.backward else ""), flush=True)
             del args_
     out = {"label": args.label, "set": args.set, "card": card[0] if card else None, "rows": rows}
     if args.sass:
         out["sass"] = sass_counts(args.label, args.sass)
         print(f"{args.label} SASS: {out['sass']}", flush=True)
+        if args.backward:
+            out["bwd_sass"] = bwd_sass_counts(args.label, args.sass)
+            print(f"{args.label} backward SASS: {out['bwd_sass']}", flush=True)
     print(json.dumps(out))
     return 0
 
